@@ -1,0 +1,186 @@
+"""Transcription + evaluation harness (PyTorch port of train/eval.py).
+
+  wav batch -> log-mel (eval, no dither) -> Conformer encode
+  -> greedy RNNT (the fused kernel, or frame-sync) or greedy CTC
+  -> host detokenization -> aggregate WER
+
+Metric names match the reference
+(``{val|test}/perf_{lang}_{rnnt|ctc}_{wer|noisy_wer|avg_wer}``).
+
+``greedy_impl``: ``"auto"`` picks the fused kernel on a CUDA model and
+frame-sync on the CPU; ``"fused"`` forces the kernel wrapper (on the CPU
+it runs its plain version); ``"framesync"`` that plain version, a
+batched Python-loop decoder, on any device. The kernel picks each row's own language head, so a
+mixed-language batch takes it too.
+"""
+
+from __future__ import annotations
+
+import collections
+import concurrent.futures as cf
+import dataclasses
+import wave
+from typing import Sequence
+
+import torch
+
+from ..audio.features import FrontendConfig, log_mel_spectrogram
+from ..audio.io import load_audio
+from ..data.manifest import ManifestEntry
+from ..data.pipeline import BucketSpec, _assemble
+from ..ops.decode_fused import (
+    rnnt_greedy_decode_fused,
+    rnnt_greedy_decode_fused_reference,
+)
+from ..ops.decoding import ctc_greedy_decode
+from .metrics import wer
+
+DECODERS = ("rnnt", "ctc")
+
+
+@dataclasses.dataclass
+class Transcriber:
+    """Batched transcription with a HybridRNNTCTC on its own device."""
+
+    model: torch.nn.Module
+    tokenizer: object
+    languages: Sequence[str]
+    frontend: FrontendConfig = FrontendConfig()
+    batch_size: int = 16
+    bucket_spec: BucketSpec | None = None
+    max_symbols: int = 10
+    max_out: int = 256
+    greedy_impl: str = "auto"  # "auto" | "fused" | "framesync"
+
+    def __post_init__(self):
+        cfg = self.model.cfg
+        self.device = self.model.device
+        if self.greedy_impl == "auto":
+            self.greedy_impl = "fused" if self.device.type == "cuda" else "framesync"
+        if self.greedy_impl not in ("fused", "framesync"):
+            raise ValueError(
+                f"greedy_impl={self.greedy_impl!r}: labelsync and the beam "
+                "decoders arrive with later slices"
+            )
+        if self.frontend.n_mels != cfg.encoder.feat_in:
+            raise ValueError("front-end mel bins must match encoder feat_in")
+        # batches encoded, and batches run per decoder
+        self.counts: collections.Counter = collections.Counter()
+
+    @torch.inference_mode()
+    def _encode(self, audio, audio_len):
+        mel, mel_lens = log_mel_spectrogram(audio, audio_len, self.frontend)
+        self.counts["encoder_batches"] += 1
+        return self.model.encode(mel, mel_lens)
+
+    @torch.inference_mode()
+    def decode_batch(self, audio, audio_len, lang_ids, decoder: str):
+        """Device tensors of one batch -> (ids [B, N], lens [B])."""
+        model = self.model
+        f, enc_lens = self._encode(audio, audio_len)
+        self.counts[f"{decoder}_batches"] += 1
+        if decoder == "ctc":
+            return ctc_greedy_decode(
+                model.ctc_logprobs(f, lang_ids), enc_lens, model.cfg.blank_local
+            )
+        greedy = (
+            rnnt_greedy_decode_fused if self.greedy_impl == "fused"
+            else rnnt_greedy_decode_fused_reference
+        )
+        return greedy(
+            model.joint_project_enc(f), enc_lens, lang_ids, model,
+            max_symbols=self.max_symbols, max_out=self.max_out,
+        )
+
+    def transcribe(
+        self, entries: Sequence[ManifestEntry], decoder: str = "rnnt"
+    ) -> list[str]:
+        """Entries -> hypothesis strings (original entry order)."""
+        if decoder not in DECODERS:
+            raise ValueError(
+                f"decoder={decoder!r}: the beam decoders arrive with a later slice"
+            )
+        spec = self.bucket_spec or BucketSpec()
+        lang_index = {l: i for i, l in enumerate(self.languages)}
+        by_bucket: dict[int, list[int]] = {}
+        for i, e in enumerate(entries):
+            by_bucket.setdefault(spec.bucket_of(e.duration), []).append(i)
+
+        hyps: list[str] = [""] * len(entries)
+        dev = self.device
+        with cf.ThreadPoolExecutor(8) as io_pool:
+            for bucket, idxs in by_bucket.items():
+                for i0 in range(0, len(idxs), self.batch_size):
+                    chunk_idx = idxs[i0 : i0 + self.batch_size]
+                    n_real = len(chunk_idx)
+                    padded = chunk_idx + [chunk_idx[-1]] * (self.batch_size - n_real)
+                    batch = _assemble(
+                        [entries[j] for j in padded], n_real, bucket, spec,
+                        self.tokenizer, lang_index, 0, load_audio, io_pool,
+                    )
+                    ids, lens = self.decode_batch(
+                        torch.from_numpy(batch.audio).to(dev),
+                        torch.from_numpy(batch.audio_len).to(dev),
+                        torch.from_numpy(batch.lang_ids).to(dev),
+                        decoder,
+                    )
+                    ids = ids.cpu().numpy()
+                    lens = lens.cpu().numpy()
+                    for row in range(n_real):
+                        hyps[chunk_idx[row]] = self.tokenizer.ids_to_text(
+                            ids[row, : lens[row]].tolist(), batch.langs[row]
+                        )
+        return hyps
+
+    def transcribe_files(
+        self, audio_paths: Sequence[str], language: str, decoder: str = "rnnt"
+    ) -> list[str]:
+        """Path-level API (the reference's ``model.transcribe(audio,
+        batch_size, language_id)``); durations come from the WAV headers."""
+        entries = []
+        for p in audio_paths:
+            try:
+                with wave.open(p, "rb") as w:
+                    dur = w.getnframes() / w.getframerate()
+            except (wave.Error, EOFError, OSError):
+                dur = 0.0  # not a WAV: decoded by ffmpeg, first bucket
+            entries.append(
+                ManifestEntry(audio_filepath=p, duration=dur, text="", lang=language)
+            )
+        return self.transcribe(entries, decoder)
+
+    def compute_wer(
+        self, entries: Sequence[ManifestEntry], decoder: str = "rnnt"
+    ) -> float:
+        hyps = self.transcribe(entries, decoder)
+        return wer([e.text for e in entries], hyps)
+
+
+def run_eval(
+    logger,
+    type_: str,
+    transcriber: Transcriber,
+    clean_entries: Sequence[ManifestEntry],
+    noisy_entries: Sequence[ManifestEntry],
+    epoch: int,
+    curr_lang_idx: int,
+    lang: str,
+) -> dict:
+    """Per-(split, lang) eval over both decoders — reference utils.py:151-174
+    ``run_eval``, identical metric keys."""
+    perf = {}
+    log_dict = {}
+    for mode in DECODERS:
+        val = transcriber.compute_wer(clean_entries, mode)
+        noisy = transcriber.compute_wer(noisy_entries, mode)
+        perf[f"{mode}_wer"] = val
+        perf[f"{mode}_noisy_wer"] = noisy
+        perf[f"{mode}_avg_wer"] = (val + noisy) / 2
+        log_dict[f"{type_}/perf_{lang}_{mode}_wer"] = val
+        log_dict[f"{type_}/perf_{lang}_{mode}_noisy_wer"] = noisy
+        log_dict[f"{type_}/perf_{lang}_{mode}_avg_wer"] = perf[f"{mode}_avg_wer"]
+    log_dict["epoch"] = epoch
+    log_dict["lang"] = curr_lang_idx
+    if logger is not None:
+        logger.log(log_dict)
+    return perf
