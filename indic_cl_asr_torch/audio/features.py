@@ -1,4 +1,4 @@
-"""Log-mel filterbank front-end in PyTorch (eval mode).
+"""Log-mel filterbank front-end in PyTorch (eval and train mode).
 
 Port of indic_cl_asr_tpu/audio/features.py with its ``fft_impl="fft"``
 semantics (the reference NeMo FilterbankFeatures.forward,
@@ -11,8 +11,9 @@ features.py:400-460):
       -> masked per-feature mean / unbiased std + 1e-5
       -> zero fill beyond seq_len, frames padded to a multiple of pad_to
 
-Dither is a training-time augmentation and arrives with the training
-slice; this front-end is the eval one (no dither).
+In train mode ``dither · N(0, 1)`` noise, drawn from a generator on the
+signal's device, is added before the preemphasis (the reference's
+train-only dither, ``FrontendConfig.dither``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ class FrontendConfig:
     n_mels: int = 80
     lowfreq: float = 0.0
     highfreq: float | None = None  # None -> sample_rate / 2
+    dither: float = 1e-5
     preemph: float | None = 0.97
     log_zero_guard: float = 2.0 ** -24
     mag_power: float = 2.0
@@ -155,12 +157,19 @@ def _normalize(x, seq_len, cfg: FrontendConfig, axes):
 
 
 def log_mel_spectrogram(
-    signal: torch.Tensor, lengths: torch.Tensor, cfg: FrontendConfig
+    signal: torch.Tensor, lengths: torch.Tensor, cfg: FrontendConfig, *,
+    training: bool = False, generator: torch.Generator | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """[B, S] float audio + [B] sample counts -> ([B, n_mels, T'] f32,
-    [B] int32 frame counts)."""
+    [B] int32 frame counts). ``training`` adds the dither, drawn from
+    ``generator``."""
     x = signal.to(torch.float32)
     seq_len = output_seq_len(lengths.to(torch.int64), cfg).to(torch.int32)
+
+    if training and cfg.dither > 0 and generator is not None:
+        x = x + cfg.dither * torch.randn(
+            x.shape, generator=generator, device=x.device, dtype=x.dtype
+        )
 
     if cfg.preemph is not None:
         x = torch.cat([x[:, :1], x[:, 1:] - cfg.preemph * x[:, :-1]], dim=1)

@@ -12,6 +12,11 @@ every parameter and BatchNorm statistic of the port's HybridRNNTCTC:
     (``encoder/stack/layers/<leaf>[L, ...]``, the flagship's) split per
     layer, or the unrolled ``encoder/layers_<i>``;
   * the LSTM, the joint head and the CTC head keep the JAX layout.
+
+The same mapping serves any tree shaped like the parameters: a gradient
+tree or updated parameters (``jax_state_dict({"params": grads}, L)``),
+so tests compare gradients and updates name by name. BatchNorm statistics
+are mapped where ``batch_stats`` is given.
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ def _layer(sd, prefix, p, bs):
     )
     sd[f"{prefix}.conv.depthwise_conv.bias"] = np.asarray(dw["bias"])
     _norm(sd, f"{prefix}.conv.batch_norm", conv["batch_norm"])
+    if bs is None:
+        return
     stats = bs["conv"]["batch_norm"]
     sd[f"{prefix}.conv.batch_norm.running_mean"] = np.asarray(stats["mean"])
     sd[f"{prefix}.conv.batch_norm.running_var"] = np.asarray(stats["var"])
@@ -63,11 +70,11 @@ def _slice(tree, i):
 
 
 def jax_state_dict(variables: dict, n_layers: int) -> dict[str, np.ndarray]:
-    """Flax variables -> the port's state-dict names and layouts (numpy)."""
+    """Flax variables -> the port's state-dict names and layouts (numpy);
+    the BatchNorm statistics only when ``variables`` has ``batch_stats``."""
     params = variables["params"]
-    stats = variables.get("batch_stats", {})
     enc = params["encoder"]
-    enc_bs = stats.get("encoder", {})
+    enc_bs = variables["batch_stats"]["encoder"] if "batch_stats" in variables else None
     sd: dict[str, np.ndarray] = {}
     pre = enc["pre_encode"]
     i = 0
@@ -82,10 +89,10 @@ def jax_state_dict(variables: dict, n_layers: int) -> dict[str, np.ndarray]:
     for li in range(n_layers):
         if "stack" in enc:
             p = _slice(enc["stack"]["layers"], li)
-            bs = _slice(enc_bs["stack"]["layers"], li)
+            bs = _slice(enc_bs["stack"]["layers"], li) if enc_bs is not None else None
         else:
             p = enc[f"layers_{li}"]
-            bs = enc_bs[f"layers_{li}"]
+            bs = enc_bs[f"layers_{li}"] if enc_bs is not None else None
         _layer(sd, f"encoder.layers.{li}", p, bs)
     pred = params["prediction"]
     sd["prediction.embedding"] = np.asarray(pred["embedding"])

@@ -2,8 +2,8 @@
 
 Port of indic_cl_asr_tpu/models/ctc.py: one aggregate head
 [d, V_total + 1] (shared blank last); each sample's logits are its
-language's contiguous V_local columns plus the blank column, then an f32
-log-softmax.
+language's contiguous V_local columns plus the blank column, cast to the
+compute dtype, an f32-accumulated product and an f32 log-softmax.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ class CTCConfig:
     feat_in: int
     vocab_size_total: int
     n_langs: int
+    dtype: torch.dtype = torch.float32
 
     @property
     def vocab_per_lang(self) -> int:
@@ -51,6 +52,8 @@ class CTCDecoder(nn.Module):
             [self.bias[: cfg.vocab_size_total].reshape(L, V)[lang],
              self.bias[-1:][None].expand(B, -1)], dim=-1,
         )
-        x = encoded.to(self.kernel.dtype).float()
-        logits = torch.einsum("btd,bdv->btv", x, w.float()) + b.float()[:, None]
+        dt = cfg.dtype
+        x = encoded.to(dt).float()
+        logits = torch.einsum("btd,bdv->btv", x, w.to(dt).float())
+        logits = logits + b.to(dt).float()[:, None]
         return torch.log_softmax(logits, dim=-1)

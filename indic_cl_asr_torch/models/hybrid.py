@@ -1,15 +1,18 @@
-"""Hybrid RNNT+CTC model assembly (PyTorch, serving).
+"""Hybrid RNNT+CTC model assembly (PyTorch, serving and training).
 
 Port of indic_cl_asr_tpu/models/hybrid.py: one module with the encoder,
-prediction net, joint and CTC head, and the decode entry points
-``encode``, ``joint_project_enc``, ``pred_step``, ``joint_step`` and
-``ctc_logprobs``. The flagship preset is the reference checkpoint's
-architecture (17-layer d512 Conformer, 640-d 1-layer LSTM prediction net,
-640-d joint, 12 languages x 256 tokens + blank per language head).
+prediction net, joint and CTC head, and the entry points ``encode``,
+``predict``, ``joint_project``, ``joint_project_enc``, ``pred_step``,
+``joint_step`` and ``ctc_logprobs``. The flagship preset is the reference
+checkpoint's architecture (17-layer d512 Conformer, 640-d 1-layer LSTM
+prediction net, 640-d joint, 12 languages x 256 tokens + blank per
+language head).
 
 The model is built on an explicit device (the card unless ``device="cpu"``
-is passed) in its compute dtype, in eval mode; training arrives with the
-training slice, and ``train()`` raises until then.
+is passed), in eval mode and with no parameter requiring grad (serving);
+``train/state.py:make_optimizer`` marks the trainable ones. Parameters and
+BatchNorm statistics are f32 (the JAX package's ``init_model``); every
+module computes in ``cfg.dtype``, casting the weights where it uses them.
 """
 
 from __future__ import annotations
@@ -20,12 +23,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .conformer import (
-    BatchNormEval,
-    ConformerConfig,
-    ConformerEncoder,
-    RelPosSelfAttention,
-)
+from .common import Rngs
+from .conformer import BatchNorm, ConformerConfig, ConformerEncoder, RelPosSelfAttention
 from .ctc import CTCConfig, CTCDecoder
 from .rnnt import LSTM, JointConfig, PredictionConfig, PredictionNetwork, RNNTJoint
 
@@ -37,7 +36,9 @@ class HybridModelConfig:
     n_langs: int = 12
     pred_hidden: int = 640
     pred_rnn_layers: int = 1
+    pred_dropout: float = 0.2
     joint_hidden: int = 640
+    joint_dropout: float = 0.2
     dtype: torch.dtype = torch.float32  # compute dtype of every module
 
     @property
@@ -48,11 +49,16 @@ class HybridModelConfig:
     def blank_local(self) -> int:
         return self.vocab_per_lang
 
+    def encoder_config(self) -> ConformerConfig:
+        return dataclasses.replace(self.encoder, dtype=self.dtype)
+
     def prediction_config(self) -> PredictionConfig:
         return PredictionConfig(
             vocab_size_total=self.vocab_size_total,
             pred_hidden=self.pred_hidden,
             pred_rnn_layers=self.pred_rnn_layers,
+            dropout=self.pred_dropout,
+            dtype=self.dtype,
         )
 
     def joint_config(self) -> JointConfig:
@@ -62,6 +68,8 @@ class HybridModelConfig:
             encoder_hidden=self.encoder.d_model,
             pred_hidden=self.pred_hidden,
             joint_hidden=self.joint_hidden,
+            dropout=self.joint_dropout,
+            dtype=self.dtype,
         )
 
     def ctc_config(self) -> CTCConfig:
@@ -69,29 +77,37 @@ class HybridModelConfig:
             feat_in=self.encoder.d_model,
             vocab_size_total=self.vocab_size_total,
             n_langs=self.n_langs,
+            dtype=self.dtype,
         )
 
 
 def tiny_config(**overrides) -> HybridModelConfig:
-    """CPU-testable config, the same shapes as the JAX package's tiny_config."""
+    """CPU-testable config, the same shapes (and no dropout) as the JAX
+    package's tiny_config."""
     enc = ConformerConfig(
         feat_in=32, n_layers=2, d_model=64, n_heads=4,
         ff_expansion_factor=2, conv_kernel_size=7, subsampling_factor=4,
+        dropout=0.0, dropout_att=0.0, dropout_pre_encoder=0.0,
     )
     base = dict(encoder=enc, vocab_size_total=64, n_langs=4, pred_hidden=32,
-                joint_hidden=32)
+                joint_hidden=32, pred_dropout=0.0, joint_dropout=0.0)
     base.update(overrides)
     return HybridModelConfig(**base)
 
 
 def flagship_config(
-    dtype=torch.bfloat16, n_layers: int = 17, attn_impl: str = "xla"
+    dtype=torch.bfloat16, n_layers: int = 17, attn_impl: str = "xla",
+    frozen_till: int = 0,
 ) -> HybridModelConfig:
+    """The reference checkpoint's architecture, with the JAX package's
+    flagship dropouts (0.1 encoder and attention, 0.2 prediction net and
+    joint)."""
     return HybridModelConfig(
         encoder=ConformerConfig(
             feat_in=80, n_layers=n_layers, d_model=512, n_heads=8,
             ff_expansion_factor=4, conv_kernel_size=31,
             subsampling_factor=4, attn_impl=attn_impl,
+            frozen_till=frozen_till,
         ),
         vocab_size_total=3072,
         n_langs=12,
@@ -106,28 +122,36 @@ class HybridRNNTCTC(nn.Module):
         dev = resolve_device(device)
         super().__init__()
         self.cfg = cfg
-        self.encoder = ConformerEncoder(cfg.encoder)
+        self.encoder = ConformerEncoder(cfg.encoder_config())
         self.prediction = PredictionNetwork(cfg.prediction_config())
         self.joint = RNNTJoint(cfg.joint_config())
         self.ctc_decoder = CTCDecoder(cfg.ctc_config())
-        self.to(device=dev, dtype=cfg.dtype)
+        self.to(device=dev)
         self.requires_grad_(False)
         self.eval()
-
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(
-                "training (dropout, SpecAugment, batch statistics) arrives "
-                "with the training slice"
-            )
-        return super().train(False)
 
     @property
     def device(self) -> torch.device:
         return self.joint.head_kernel.device
 
-    def encode(self, feats, feat_lens):
-        return self.encoder(feats, feat_lens)
+    @property
+    def frozen_till(self) -> int:
+        """Encoder layers [0, frozen_till) (and pre_encode) carry no gradient."""
+        return self.cfg.encoder.frozen_till
+
+    def encode(self, feats, feat_lens, rngs: Rngs | None = None):
+        return self.encoder(feats, feat_lens, rngs)
+
+    def predict(self, tokens, add_sos: bool = True, state=None,
+                rngs: Rngs | None = None):
+        """[B, U] aggregate label ids -> (g [B, U+1, Hp], states), the
+        blank SOS in front when ``add_sos``."""
+        return self.prediction(tokens, state, add_sos=add_sos,
+                               generator=rngs.device if rngs else None)
+
+    def joint_project(self, f, g):
+        """(f [B, T, d], g [B, U+1, Hp]) -> (f_proj, g_proj) [.., H_joint]."""
+        return self.joint.project_enc(f), self.joint.project_pred(g)
 
     def joint_project_enc(self, f):
         return self.joint.project_enc(f)
@@ -164,7 +188,7 @@ def init_weights_(model: HybridRNNTCTC, generator: torch.Generator) -> HybridRNN
             normal_(m.weight, m.weight[0].numel() ** -0.5)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, BatchNormEval)):
+        elif isinstance(m, (nn.LayerNorm, BatchNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, LSTM):

@@ -25,7 +25,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("flash_mhsa", "decode_fused")
+SOURCES = ("flash_mhsa", "decode_fused", "rnnt_lattice")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: dict[str, ctypes.CDLL] = {}

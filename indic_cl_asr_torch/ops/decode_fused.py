@@ -59,7 +59,7 @@ def _decode_params(model) -> list:
 
 def extract_decode_weights(model) -> dict:
     """The kernel's operands from a HybridRNNTCTC (single LSTM layer), in
-    the model's dtype and on its device: table [V, Hp] (the local token
+    the model's compute dtype and on its device: table [V, Hp] (the local token
     rows of the embedding), w_ih and w_hh [Hp, 4Hp], bias [4Hp], wp
     [Hp, Hj], bp [Hj], head [L, Hj, V1p] (every language's head, its
     V1 = V + 1 columns zero-padded to V1p, a multiple of 8, so each row is
@@ -79,15 +79,16 @@ def extract_decode_weights(model) -> dict:
         return cached[1]
     emb, w_ih, w_hh, bias, wp, bp, head, head_b = params
     V1 = head.shape[-1]
+    dt = model.cfg.dtype
     with torch.no_grad():
         w = {
-            "table": emb[: V1 - 1].contiguous(),
-            "w_ih": w_ih.contiguous(),
-            "w_hh": w_hh.contiguous(),
-            "bias": bias.contiguous(),
-            "wp": wp.t().contiguous(),
-            "bp": bp.contiguous(),
-            "head": F.pad(head, (0, _pad8(V1) - V1)).contiguous(),
+            "table": emb[: V1 - 1].to(dt).contiguous(),
+            "w_ih": w_ih.to(dt).contiguous(),
+            "w_hh": w_hh.to(dt).contiguous(),
+            "bias": bias.to(dt).contiguous(),
+            "wp": wp.t().to(dt).contiguous(),
+            "bp": bp.to(dt).contiguous(),
+            "head": F.pad(head.to(dt), (0, _pad8(V1) - V1)).contiguous(),
             "head_b": head_b.float().contiguous(),
         }
     model._decode_weights = (key, w)

@@ -84,8 +84,12 @@ def test_wrapper_on_cpu_takes_plain_version_and_checks_inputs():
     out = flash_relpos_mhsa(*args, n_heads=2)
     assert torch.equal(out, flash_relpos_mhsa_reference(*args, n_heads=2))
     assert flash_relpos_mhsa.launches == before  # no kernel launched on the CPU
-    with pytest.raises(NotImplementedError):
-        flash_relpos_mhsa(*args, n_heads=2, dropout_rate=0.1)
+    dropped = flash_relpos_mhsa(*args, n_heads=2, dropout_rate=0.1, seed=3)
+    assert torch.equal(dropped, flash_relpos_mhsa_reference(
+        *args, n_heads=2, dropout_rate=0.1, seed=3))
+    assert not torch.equal(dropped, out)
+    with pytest.raises(ValueError):
+        flash_relpos_mhsa(*args, n_heads=2, dropout_rate=1.0)
     with pytest.raises(ValueError):
         flash_relpos_mhsa(*args[:3], args[3][:-1], *args[4:], n_heads=2)
     meta = [a.to("meta") for a in args]

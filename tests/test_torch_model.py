@@ -140,9 +140,10 @@ def test_eval_only_and_layout_errors():
     port = HybridRNNTCTC(tiny_config(), device="cpu")
     with pytest.raises(TypeError):  # options of later slices are not taken
         dataclasses.replace(port.cfg.encoder, causal_conv=True)
-    assert not port.training
-    with pytest.raises(NotImplementedError):
-        port.train()
+    assert not port.training  # built for serving
+    port.train()
+    assert all(m.training for m in port.modules())
+    port.eval()
     bad = {"params": {"encoder": {"pre_encode": {}}}}
     with pytest.raises(KeyError):
         from_jax_variables(port, bad)

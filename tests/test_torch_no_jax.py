@@ -26,6 +26,7 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys\n"
         "import indic_cl_asr_torch.train.eval, indic_cl_asr_torch.models.convert\n"
+        "import indic_cl_asr_torch.train.step, indic_cl_asr_torch.data.pipeline\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN,)
     )
