@@ -6,10 +6,11 @@
 Phases, each of which fails the script when it fails:
 
 1. Device: a CUDA card must be present; prints its name and power limit.
-2. Build: compiles the three CUDA sources in indic_cl_asr_torch/csrc
+2. Build: compiles the four CUDA sources in indic_cl_asr_torch/csrc
    (flash_mhsa.cu: flash forward and backward; decode_fused.cu;
-   rnnt_lattice.cu: alpha and beta) with nvcc for sm_90a, one nvcc per
-   source, started together.
+   rnnt_lattice.cu: alpha and beta; joint_fused.cu: the fused joint
+   forward and backward) with nvcc for sm_90a, one nvcc per source,
+   started together.
 3. Kernels against their plain PyTorch versions on the card:
    flash rel-pos attention at B16 T204 E512 H8 in f32 (max abs err
    <= 1e-4) and bf16 (<= 2e-2), plus T in {1, 37, 512}, a row with
@@ -24,7 +25,16 @@ Phases, each of which fails the script when it fails:
    the kernels' dropout bits equal to the plain version's, keep rate
    within 5e-3 of 1 - rate; the alpha and beta lattices at B16 T204
    U+1 129 (rows with u_len 0, t_len 1, t_len < T): finite entries atol
-   1e-4, the NLL and both slab gradients rel 1e-5.
+   1e-4, the NLL and both slab gradients rel 1e-5. The fused joint
+   forward and backward at the flagship's B16 T204 U+1 129 H640 V+1 257
+   (T not a multiple of the 8-frame tile, the rows' heads from two
+   languages, a label outside the head) in f32 and bf16, dropout 0 and
+   0.2, against the plain version with the same dropout bits: slabs atol
+   1e-5, dW and db within 1e-5·max|ref|, df and dg within 1e-5·max|ref|
+   in f32 and 1e-2·max|ref| in bf16 (both sides round one f32 sum to
+   bf16; a bf16 step is 2^-8 of the value, and the kernels' f32 atomics
+   sum in another order); the kernels' dropout bits equal the plain
+   version's, keep rate within 2e-3 of 0.8.
 4. The serving slice: 32 synthetic 16 kHz WAVs in two duration buckets,
    a char tokenizer trained here, the flagship model (17 layers, d512,
    bf16, flash attention) with seeded random weights, transcribed with the
@@ -52,6 +62,25 @@ Phases, each of which fails the script when it fails:
    card through the kernels against the same step on the CPU through the
    plain versions. Losses rel 1e-4, each gradient within 1e-3·max|grad|,
    BatchNorm statistics atol 1e-5, updated parameters atol 2·lr + 1e-6.
+   Once with ``rnnt_impl="xla"`` and once with ``"pallas"`` (the fused
+   joint kernels), at the same bars.
+8. The continual-learning sequence: ``run_sequence`` at flagship width
+   (17 layers, d512, bf16, layers 0-11 frozen, StepConfig(rnnt_impl=
+   "pallas", rnnt_remat="none", uniform_lang_head=True)) over hindi then
+   bengali (per language 32 training WAVs of 4.5-8 s, two batches of 16,
+   and 8 WAVs each of val and test, clean and noisy), once for each of
+   naive, EWC, MAS and LwF. The counts are reset just before and read
+   just after each run: joint forward and backward = training steps +
+   EWC importance batches, flash forward 17 x the encoder passes, flash
+   backward 5 x the backward passes, alpha and beta = the RNNT losses,
+   decode = the RNNT eval batches. Val matrix of one then two languages
+   with finite WERs; on task 2 EWC's penalty_gnorm > 0, MAS's penalty > 0,
+   LwF's rnnt_kd and ctc_kd finite and > 0; frozen parameters
+   bit-unchanged; BatchNorm statistics bit-unchanged by every importance
+   batch and by the LwF teacher's forwards; bwt_curves.json and
+   model_<lang>.npz written. Then ms per step of one flagship batch under
+   ``rnnt_impl="pallas"`` and ``"xla"`` (in turns), one profiled step of
+   each, and the joint kernels timed at the inputs that step gave them.
 
 Prints the card's name and power limit (``nvidia-smi``) on a line of its
 own first, then the full record as one ``record {...}`` line, the
@@ -67,10 +96,12 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
+PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
 N_LAYERS = 17
 
 
@@ -317,8 +348,15 @@ def check_decode(dev, rec, seeds=4):
     rec["decode_f32_max_id_diff"] = max_diff
 
 
-def make_data(root, n=32, seed=0):
-    """32 WAVs of one language in two buckets (2.5-4 s and 4.5-8 s)."""
+WORDS = {"hindi": ["namaste", "dhanyavad", "pani", "ghar", "samay", "kal", "aaj"],
+         "bengali": ["nomoshkar", "dhonnobad", "jol", "bari", "shomoy", "kal", "aj"]}
+
+
+def make_data(root, n=32, seed=0, lang="hindi", durations=((2.5, 4.0), (4.5, 8.0)),
+              noise=0.05, prefix="utt"):
+    """``n`` WAVs of one language, the i-th of a duration drawn from
+    ``durations[i % len(durations)]`` (by default two buckets, 2.5-4 s and
+    4.5-8 s), a tone plus white noise of std ``noise``."""
     import numpy as np
 
     from indic_cl_asr_torch.audio.io import write_wav
@@ -326,19 +364,20 @@ def make_data(root, n=32, seed=0):
 
     rng = np.random.default_rng(seed)
     os.makedirs(root, exist_ok=True)
-    words = ["namaste", "dhanyavad", "pani", "ghar", "samay", "kal", "aaj"]
+    words = WORDS[lang]
     entries = []
     for i in range(n):
-        dur = float(rng.uniform(2.5, 4.0) if i % 2 == 0 else rng.uniform(4.5, 8.0))
+        lo, hi = durations[i % len(durations)]
+        dur = float(rng.uniform(lo, hi))
         samples = int(dur * 16000)
         t = np.arange(samples) / 16000.0
         f0 = rng.uniform(100, 300)
         wav = 0.3 * np.sin(2 * np.pi * f0 * t) * (1 + 0.5 * np.sin(2 * np.pi * 3 * t))
-        wav = (wav + 0.05 * rng.standard_normal(samples)).astype(np.float32)
-        path = os.path.join(root, f"utt_{i:02d}.wav")
+        wav = (wav + noise * rng.standard_normal(samples)).astype(np.float32)
+        path = os.path.join(root, f"{prefix}_{i:02d}.wav")
         write_wav(path, wav, 16000)
         text = " ".join(rng.choice(words, size=int(rng.integers(2, 6))))
-        entries.append(ManifestEntry(audio_filepath=path, duration=dur, text=text, lang="hindi"))
+        entries.append(ManifestEntry(audio_filepath=path, duration=dur, text=text, lang=lang))
     return entries, words
 
 
@@ -685,6 +724,74 @@ def check_lattice(dev, rec):
     rec["lattice_errors"] = out
 
 
+def joint_inputs(dev, dtype, B=16, T=204, U1=129, H=640, V1=257, seed=0):
+    """The fused joint's operands at the flagship's shapes: f, g in
+    ``dtype``, the f32 heads of two languages gathered per row, labels
+    with the pad column 0 and one label outside the head, and slab
+    cotangents that are 0 past a quarter of the frames from the end (the
+    frames past a row's length)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    f = 0.5 * torch.randn((B, T, H), generator=gen)
+    g = 0.5 * torch.randn((B, U1, H), generator=gen)
+    heads = torch.randn((2, H, V1), generator=gen) * H ** -0.5 * 4
+    hb = 0.1 * torch.randn((2, V1), generator=gen)
+    lang = torch.arange(B) % 2
+    labels = torch.randint(0, V1 - 1, (B, U1), generator=gen, dtype=torch.int32)
+    labels[:, -1] = 0
+    labels[0, 0] = V1 + 5
+    cots = [torch.randn((B, T, U1), generator=gen) for _ in range(2)]
+    for c in cots:
+        c[:, T - T // 4:] = 0.0
+    args = [f.to(dev, dtype), g.to(dev, dtype), heads[lang].to(dev), hb[lang].to(dev),
+            labels.to(dev)]
+    return args, [c.to(dev) for c in cots]
+
+
+def check_joint(dev, rec):
+    import torch
+
+    from indic_cl_asr_torch.ops import joint_fused as J
+    from indic_cl_asr_torch.ops.flash_mhsa import keep_threshold
+
+    errs = {}
+    for dtype, grad_tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for rate in (0.0, 0.2):
+            args, (dlpb, dlpl) = joint_inputs(dev, dtype)
+            V1 = args[2].shape[2]
+            kw = dict(blank=V1 - 1, dropout_rate=rate)
+            out = {}
+            for name, fn in (("kernel", J.joint_slabs), ("plain", J.joint_slabs_reference)):
+                leaves = [a.clone().requires_grad_(True) for a in args[:4]]
+                lpb, lpl = fn(*leaves, args[4], 1234, **kw)
+                grads = torch.autograd.grad((lpb * dlpb + lpl * dlpl).sum(), leaves)
+                out[name] = (lpb, lpl, grads)
+            torch.cuda.synchronize()
+            (kb, kl, kg), (pb, pl, pg) = out["kernel"], out["plain"]
+            slab = max((kb - pb).abs().max().item(), (kl - pl).abs().max().item())
+            grad = {n: (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                    for n, a, b in zip(("df", "dg", "dW", "db"), kg, pg)}
+            tag = f"B16 T204 U+1 129 {str(dtype).split('.')[-1]} drop {rate}"
+            errs[tag] = {"slabs_abs": slab, **grad}
+            log(f"  joint {tag}: slabs max abs err {slab:.3e} (tol 1e-5); grads err / "
+                f"max|ref| " + ", ".join(f"{n} {e:.3e}" for n, e in grad.items())
+                + f" (tol df, dg {grad_tol:g}; dW, db 1e-5)")
+            dtypes_ok = all(a.dtype == b.dtype for a, b in zip(kg, pg))
+            if not (slab <= 1e-5 and grad["df"] <= grad_tol and grad["dg"] <= grad_tol
+                    and grad["dW"] <= 1e-5 and grad["db"] <= 1e-5 and dtypes_ok):
+                raise AssertionError(f"joint {tag}: {errs[tag]}")
+    rec["joint_errors"] = errs
+    bits = J.joint_dropout_bits_kernel(987654321, 4, 41, 129, 640, dev)
+    want = J.dropout_bits(987654321, 4, 129, 640, 0, 41, dev)
+    keep = (bits <= keep_threshold(0.2)).double().mean().item()
+    log(f"  joint dropout bits B4 T41 U+1 129 H640: equal {torch.equal(bits, want)}, "
+        f"keep rate {keep:.5f} at rate 0.2")
+    if not torch.equal(bits, want) or abs(keep - 0.8) >= 2e-3:
+        raise AssertionError("joint dropout bits differ from the plain version's")
+    rec["joint_dropout_bits"] = {"equal": True, "keep_rate": keep}
+
+
 def training_batches(entries, tok, langs, n, seed=0):
     """``n`` BatchPipeline batches of 16 from the 4-8 s bucket (a new
     shuffle every epoch of its 16 entries)."""
@@ -700,23 +807,29 @@ def training_batches(entries, tok, langs, n, seed=0):
     return out[:n]
 
 
-def training_counts():
+def counted_wrappers():
+    """{kernel name: the wrapper that counts its launches}."""
+    from indic_cl_asr_torch.ops import decode_fused as dfm
     from indic_cl_asr_torch.ops import flash_mhsa as fm
+    from indic_cl_asr_torch.ops import joint_fused as J
     from indic_cl_asr_torch.ops import rnnt_loss as R
 
-    return {"flash_relpos_mhsa": fm.flash_relpos_mhsa.launches,
-            "flash_relpos_mhsa_backward": fm.flash_relpos_mhsa_backward.launches,
-            "rnnt_alpha": R.rnnt_alpha.launches, "rnnt_beta": R.rnnt_beta.launches}
+    return {"flash_relpos_mhsa": fm.flash_relpos_mhsa,
+            "flash_relpos_mhsa_backward": fm.flash_relpos_mhsa_backward,
+            "rnnt_alpha": R.rnnt_alpha, "rnnt_beta": R.rnnt_beta,
+            "joint_fused_forward": J.joint_fused_forward,
+            "joint_fused_backward": J.joint_fused_backward,
+            "rnnt_greedy_decode_fused": dfm.rnnt_greedy_decode_fused}
+
+
+def training_counts():
+    return {k: w.launches for k, w in counted_wrappers().items()
+            if k != "rnnt_greedy_decode_fused"}
 
 
 def reset_training_counts():
-    from indic_cl_asr_torch.ops import flash_mhsa as fm
-    from indic_cl_asr_torch.ops import rnnt_loss as R
-
-    fm.flash_relpos_mhsa.launches = 0
-    fm.flash_relpos_mhsa_backward.launches = 0
-    R.rnnt_alpha.launches = 0
-    R.rnnt_beta.launches = 0
+    for w in counted_wrappers().values():
+        w.launches = 0
 
 
 def capture_training_inputs(step, batch):
@@ -849,7 +962,8 @@ def run_training(dev, rec, entries, tok, langs, timed_steps=5, overfit_steps=30)
     n = timed_steps
     log(f"  launches over {n} steps: {launches}")
     want = {"flash_relpos_mhsa": 17 * n, "flash_relpos_mhsa_backward": 5 * n,
-            "rnnt_alpha": n, "rnnt_beta": n}
+            "rnnt_alpha": n, "rnnt_beta": n, "joint_fused_forward": 0,
+            "joint_fused_backward": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     losses = [{k: float(v) for k, v in a.items()} for a in auxes]
@@ -901,9 +1015,10 @@ def grad_scale(name, grads):
     return max(grads[name].abs().max().item(), 1e-30)
 
 
-def check_step_f32(dev, rec, host_batch, lr=1e-4):
+def check_step_f32(dev, rec, host_batch, rnnt_impl="xla", lr=1e-4):
     """One f32 step at flagship width, 4 layers (2 frozen), B4, on the card
-    through the kernels and on the CPU through the plain versions."""
+    through the kernels and on the CPU through the plain versions, with
+    the RNNT joint of ``rnnt_impl``."""
     import dataclasses
 
     import numpy as np
@@ -920,7 +1035,7 @@ def check_step_f32(dev, rec, host_batch, lr=1e-4):
         encoder=dataclasses.replace(cfg.encoder, dropout=0.0, dropout_pre_encoder=0.0,
                                     dropout_att=0.1))
     step_cfg = StepConfig(frontend=FrontendConfig(dither=0.0), rnnt_chunk_size=64,
-                          rnnt_remat="none", uniform_lang_head=True)
+                          rnnt_remat="none", uniform_lang_head=True, rnnt_impl=rnnt_impl)
     np_batch = {"audio": host_batch.audio[:4], "audio_len": host_batch.audio_len[:4],
                 "tokens": host_batch.tokens[:4], "token_len": host_batch.token_len[:4],
                 "lang_ids": host_batch.lang_ids[:4]}
@@ -951,8 +1066,9 @@ def check_step_f32(dev, rec, host_batch, lr=1e-4):
         out[name] = (aux, grads, state, counted, secs)
         del model, opt, step
     (aux_c, g_c, s_c, n_c, t_c), (aux_p, g_p, s_p, n_p, t_p) = out["card"], out["cpu"]
+    joint = int(rnnt_impl == "pallas")
     want = {"flash_relpos_mhsa": 4, "flash_relpos_mhsa_backward": 2, "rnnt_alpha": 1,
-            "rnnt_beta": 1}
+            "rnnt_beta": 1, "joint_fused_forward": joint, "joint_fused_backward": joint}
     if n_c != want or any(n_p.values()):
         raise AssertionError(f"f32 step launches: card {n_c}, cpu {n_p}")
     loss_rel = max(abs(aux_c[k] - aux_p[k]) / abs(aux_p[k]) for k in aux_p)
@@ -964,13 +1080,13 @@ def check_step_f32(dev, rec, host_batch, lr=1e-4):
     res = {"losses_card": aux_c, "losses_cpu": aux_p, "loss_rel_err": loss_rel,
            "grad_err_over_max": grad_rel, "bn_stats_abs_err": bn_err,
            "param_abs_err": par_err, "card_s": t_c, "cpu_s": t_p}
-    log(f"  f32 step, card vs CPU: loss rel err {loss_rel:.3e} (tol 1e-4), grad err / "
+    log(f"  f32 step ({rnnt_impl}), card vs CPU: loss rel err {loss_rel:.3e} (tol 1e-4), grad err / "
         f"max|grad| {grad_rel:.3e} (1e-3), BatchNorm stats {bn_err:.3e} (1e-5), params "
         f"{par_err:.3e} ({2 * lr + 1e-6:g}); card {t_c:.2f} s, CPU {t_p:.2f} s")
     if not (loss_rel <= 1e-4 and grad_rel <= 1e-3 and bn_err <= 1e-5
             and par_err <= 2 * lr + 1e-6):
-        raise AssertionError(f"f32 step card vs CPU: {res}")
-    rec["step_f32_card_vs_cpu"] = res
+        raise AssertionError(f"f32 step ({rnnt_impl}) card vs CPU: {res}")
+    rec[f"step_f32_card_vs_cpu_{rnnt_impl}"] = res
 
 
 def time_training_kernels(captured, launches, rec):
@@ -1041,6 +1157,365 @@ def time_training_kernels(captured, launches, rec):
     return lines
 
 
+CL_LANGS = ["hindi", "bengali"]
+CL_METHODS = ("naive", "ewc", "mas", "lwf")
+CL_SETS = ("val_clean", "val_noisy", "test_clean", "test_noisy")
+
+
+def make_cl_data(root):
+    """Per language: 32 training WAVs of 4.5-8 s (two batches of 16 in the
+    4-8 s bucket) and 8 WAVs each of val and test, clean (noise std 0.05)
+    and noisy (0.3), of 2.5-8 s. Returns the TaskData by language and the
+    tokenizer, a char tokenizer per language trained on its words."""
+    from indic_cl_asr_torch.data.tokenizer import CharTokenizer, MultilingualTokenizer
+    from indic_cl_asr_torch.train.driver import TaskData
+
+    tasks, toks = {}, {}
+    for k, lang in enumerate(CL_LANGS):
+        train, words = make_data(root, 32, seed=10 + k, lang=lang, durations=((4.5, 8.0),),
+                                 prefix=f"{lang}_train")
+        sets = [make_data(root, 8, seed=20 + 4 * k + j, lang=lang,
+                          noise=0.3 if name.endswith("noisy") else 0.05,
+                          prefix=f"{lang}_{name}")[0]
+                for j, name in enumerate(CL_SETS)]
+        tasks[lang] = TaskData(train, *sets)
+        toks[lang] = CharTokenizer.train([" ".join(words)] * 4)
+    return tasks, MultilingualTokenizer(toks)
+
+
+def cl_setup(dev, rnnt_impl="pallas"):
+    """The flagship model (bf16, flash attention, layers 0-11 frozen) with
+    seeded random weights, its AdamW (lr 1e-4, wd 0.01) and the step
+    config of scripts/config.yaml with the given joint."""
+    import torch
+
+    from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC, flagship_config, init_weights_
+    from indic_cl_asr_torch.train.state import make_optimizer
+    from indic_cl_asr_torch.train.step import StepConfig
+
+    model = HybridRNNTCTC(flagship_config(torch.bfloat16, attn_impl="flash", frozen_till=12),
+                          device=dev)
+    init_weights_(model, torch.Generator().manual_seed(0))
+    opt = make_optimizer(model, lr=1e-4, weight_decay=0.01, freeze_encoder_till=12,
+                         device=dev)
+    step_cfg = StepConfig(rnnt_chunk_size=64, rnnt_remat="none", uniform_lang_head=True,
+                          ctc_loss_weight=0.5, rnnt_impl=rnnt_impl)
+    return model, opt, step_cfg
+
+
+def cl_method(name, model, step_cfg, opt):
+    """The CL method with the hyper-parameters of scripts/config.yaml."""
+    from indic_cl_asr_torch.cl import ewc as E
+    from indic_cl_asr_torch.cl import lwf as L
+    from indic_cl_asr_torch.cl import mas as M
+    from indic_cl_asr_torch.cl import methods as CM
+
+    if name == "naive":
+        return CM.NaiveMethod()
+    if name == "ewc":
+        return CM.EWCMethod(E.EWCConfig(e_lambda=10.0), model, step_cfg, opt)
+    if name == "mas":
+        return CM.MASMethod(M.MASConfig(mas_lambda=1.0, mas_ctx=0.3), model, step_cfg, opt)
+    return CM.LwFMethod(L.LwFConfig(knowledge_distillation=0.1, knowledge_distillation_ctx=1.0),
+                        model, step_cfg, opt)
+
+
+def bn_stats(model):
+    return {n: b.clone() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def same_tensors(a, b):
+    import torch
+
+    return a.keys() == b.keys() and all(torch.equal(a[n], b[n]) for n in a)
+
+
+def watch_method(method, model, seen):
+    """Wrap the method's hooks: every importance batch must leave the
+    model's BatchNorm statistics bit-unchanged, and an LwF teacher's
+    statistics must be those it was made with when the next task
+    replaces it. Counts importance batches and checked teachers."""
+    importance = method.importance_batch
+
+    def importance_batch(acc, batch, generator):
+        before = bn_stats(model)
+        acc = importance(acc, batch, generator)
+        if not same_tensors(before, bn_stats(model)):
+            raise AssertionError(f"{method.name}: an importance batch changed the "
+                                 "BatchNorm statistics")
+        seen["importance_batches"] += 1
+        return acc
+
+    method.importance_batch = importance_batch
+    if method.name != "lwf":
+        return
+    end = method.end_task
+
+    def end_task(*args):
+        if method.teacher is not None:
+            if not same_tensors(seen["teacher_stats"], bn_stats(method.teacher)):
+                raise AssertionError("lwf: the teacher's forwards changed its BatchNorm "
+                                     "statistics")
+            seen["teachers_checked"] += 1
+        end(*args)
+        seen["teacher_stats"] = bn_stats(method.teacher)
+
+    method.end_task = end_task
+
+
+def step_records(path):
+    """The per-step train records of a run's metrics.jsonl."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f]
+    return [r for r in recs if any(k.startswith("train/train_loss_") for k in r)]
+
+
+def run_cl_method(dev, name, tasks, tok, spec, root):
+    """One run_sequence over CL_LANGS with CL method ``name`` and every
+    check of phase 8; returns its record and its launch counts."""
+    import collections
+
+    import numpy as np
+    import torch
+
+    from indic_cl_asr_torch.audio.features import FrontendConfig
+    from indic_cl_asr_torch.train.driver import DriverConfig, run_sequence
+    from indic_cl_asr_torch.train.eval import Transcriber
+    from indic_cl_asr_torch.train.logger import Logger
+    from indic_cl_asr_torch.train.metrics import compute_perf_matrix
+
+    model, opt, step_cfg = cl_setup(dev)
+    trainable = set(opt.names)
+    frozen = {n: p.detach().clone() for n, p in model.named_parameters() if n not in trainable}
+    method = cl_method(name, model, step_cfg, opt)
+    seen = collections.Counter()
+    watch_method(method, model, seen)
+    tr = Transcriber(model=model, tokenizer=tok, languages=CL_LANGS, frontend=FrontendConfig(),
+                     batch_size=16, bucket_spec=spec, greedy_impl="fused")
+    logger = Logger(os.path.join(root, "runs"), run_id=name, use_wandb=False)
+    cfg = DriverConfig(batch_size=16, epochs=1, seed=0, n_langs=len(CL_LANGS), bucket_spec=spec)
+
+    # --- the main path: counts reset just before, read just after ---
+    reset_training_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_sequence(cfg=cfg, model=model, step_cfg=step_cfg, optimizer=opt, method=method,
+                       task_data=tasks, tokenizer=tok, logger=logger, transcriber=tr,
+                       languages=CL_LANGS, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in counted_wrappers().items()}
+    logger.close()
+
+    steps = step_records(os.path.join(logger.dir, "metrics.jsonl"))
+    n_steps, n_imp = len(steps), seen["importance_batches"]
+    task2 = [r for r in steps if f"train/train_loss_{CL_LANGS[1]}" in r]
+    # RNNT losses (each with its backward): the steps and EWC's Fisher batches;
+    # encoder passes: those, MAS's surrogate batches, the LwF teacher's
+    # forwards on task 2 and the eval batches; backward passes through the
+    # trainable layers: the steps and both importance epochs
+    n_losses = n_steps + (n_imp if name == "ewc" else 0)
+    encodes = n_steps + n_imp + (len(task2) if name == "lwf" else 0) + tr.counts["encoder_batches"]
+    want = {"flash_relpos_mhsa": N_LAYERS * encodes,
+            "flash_relpos_mhsa_backward": (N_LAYERS - 12) * (n_steps + n_imp),
+            "rnnt_alpha": n_losses, "rnnt_beta": n_losses,
+            "joint_fused_forward": n_losses, "joint_fused_backward": n_losses,
+            "rnnt_greedy_decode_fused": tr.counts["rnnt_batches"]}
+    log(f"  {name}: {wall:.2f} s, {n_steps} steps, {n_imp} importance batches, "
+        f"eval batches {dict(tr.counts)}; launches {launches}")
+    if n_steps != 4 or len(task2) != 2 or n_imp != (4 if name in ("ewc", "mas") else 0):
+        raise AssertionError(f"{name}: {n_steps} steps ({len(task2)} on task 2), "
+                             f"{n_imp} importance batches; want 4 (2) and 4 for EWC/MAS")
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} != {want}")
+
+    val = res["val"]
+    if [len(val[l]) for l in CL_LANGS] != [2, 1]:
+        raise AssertionError(f"{name}: val records per language "
+                             f"{[len(val[l]) for l in CL_LANGS]}, want [2, 1]")
+    if not all(math.isfinite(v) for recs in val.values() for r in recs for v in r.values()):
+        raise AssertionError(f"{name}: a non-finite WER in {val}")
+    matrices = {}
+    for metric in ("rnnt_wer", "ctc_wer"):
+        # row i holds each language's i-th record: [[hi@1, bn@2], [hi@2, nan]]
+        perf, _ = compute_perf_matrix(val, metric)
+        if perf.shape != (2, 2) or int(np.isfinite(perf).sum()) != 3:
+            raise AssertionError(f"{name}: {metric} matrix {perf.tolist()}")
+        matrices[metric] = perf.tolist()
+    if not all(math.isfinite(v) for r in steps for k, v in r.items()
+               if k.startswith("train/") and isinstance(v, float)):
+        raise AssertionError(f"{name}: a non-finite training value in {steps}")
+    last = task2[-1]
+    lang2 = CL_LANGS[1]
+    checks = {"ewc": ["penalty_gnorm"], "mas": ["penalty"], "lwf": ["rnnt_kd", "ctc_kd"]}
+    aux = {k: last[f"train/{k}_{lang2}"] for k in checks.get(name, [])}
+    if not all(math.isfinite(v) and v > 0 for v in aux.values()):
+        raise AssertionError(f"{name}: task-2 terms {aux} must be finite and > 0")
+    if name == "lwf" and seen["teachers_checked"] != 1:
+        raise AssertionError("lwf: the task-1 teacher was not checked")
+    for n, p in model.named_parameters():
+        if n in frozen and not torch.equal(p, frozen[n]):
+            raise AssertionError(f"{name}: frozen parameter {n} changed")
+    files = ["bwt_curves.json"] + [f"model_{l}.npz" for l in CL_LANGS]
+    missing = [f for f in files if not os.path.exists(os.path.join(logger.dir, f))]
+    if missing:
+        raise AssertionError(f"{name}: not written: {missing}")
+    log(f"  {name}: val rnnt WER {matrices['rnnt_wer']}, ctc WER {matrices['ctc_wer']}; "
+        f"task-2 terms {aux}; {len(frozen)} frozen parameters bit-unchanged; BatchNorm "
+        f"statistics kept by {n_imp} importance batches and {seen['teachers_checked']} "
+        "teacher(s)")
+    out = {"wall_s": wall, "steps": n_steps, "importance_batches": n_imp,
+           "eval_batches": dict(tr.counts), "launches": launches, "val": matrices,
+           "task2_terms": aux, "losses": [r[k] for r in steps for k in r
+                                          if k.startswith("train/train_loss_")]}
+    del model, opt, method, tr
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def capture_joint_inputs(step, batch):
+    """One step with the joint kernels' wrappers recording their arguments
+    (outside any counted run)."""
+    import torch
+
+    from indic_cl_asr_torch.ops import joint_fused as J
+
+    seen = {}
+    originals = (J.joint_fused_forward, J.joint_fused_backward)
+
+    def fwd(*a, **kw):
+        seen["fwd"] = (a, kw)
+        return originals[0](*a, **kw)
+
+    def bwd(*a, **kw):
+        seen["bwd"] = (a, kw)
+        return originals[1](*a, **kw)
+
+    # the wrapped functions count their launches on the module's name
+    fwd.launches = bwd.launches = 0
+    J.joint_fused_forward, J.joint_fused_backward = fwd, bwd
+    try:
+        step(batch, torch.Generator().manual_seed(77))
+    finally:
+        J.joint_fused_forward, J.joint_fused_backward = originals
+    torch.cuda.synchronize()
+    return seen
+
+
+def time_cl_step(dev, rec, tasks, tok, spec, steps=5):
+    """ms per step of one flagship batch under rnnt_impl "pallas" and
+    "xla", in turns (pallas, xla, xla, pallas), one profiled step of each,
+    and the joint kernels' inputs from a pallas step."""
+    import dataclasses
+
+    import torch
+
+    from indic_cl_asr_torch.data.pipeline import BatchPipeline
+    from indic_cl_asr_torch.train.step import batch_to_device_dict, make_train_step
+
+    model, opt, step_cfg = cl_setup(dev)
+    train = {impl: make_train_step(model, dataclasses.replace(step_cfg, rnnt_impl=impl), opt,
+                                   device=dev) for impl in ("pallas", "xla")}
+    host = next(iter(BatchPipeline(tasks[CL_LANGS[0]].train, tok, CL_LANGS, 16, spec=spec)))
+    batch = batch_to_device_dict(host, dev)
+    gen = torch.Generator().manual_seed(0)
+    for impl in train:
+        train[impl](batch, gen)  # warm-up
+    ms = {"pallas": [], "xla": []}
+    for impl in ("pallas", "xla", "xla", "pallas"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train[impl](batch, gen)
+        torch.cuda.synchronize()
+        ms[impl].append((time.perf_counter() - t0) * 1e3 / steps)
+    B, U = host.tokens.shape
+    log(f"  one flagship batch (B{B} U{U}), ms/step in turns: pallas {ms['pallas']}, "
+        f"xla {ms['xla']}")
+    rec["cl_step_ms"] = ms
+    rec["cl_step_profile"] = {}
+    for impl in ("pallas", "xla"):
+        log(f"  rnnt_impl={impl!r}:")
+        rec["cl_step_profile"][impl] = profile_step(train[impl], batch, min(ms[impl]), top=8)
+    captured = capture_joint_inputs(train["pallas"], batch)
+    del model, opt, train
+    torch.cuda.empty_cache()
+    return captured
+
+
+def time_joint_kernels(captured, launches, rec):
+    import torch
+
+    from indic_cl_asr_torch.ops import joint_fused as J
+
+    (f, g, w, bias, labels, seed), kw = captured["fwd"]
+    lse, dlpb, dlpl = captured["bwd"][0][6:9]
+    B, T, H = f.shape
+    U1, V1 = g.shape[1], w.shape[2]
+    rate = kw["dropout_rate"]
+    w32, b32 = w.float(), bias.float()
+    plain_fwd = lambda: J._forward_reference(f, g, w32, b32, labels, seed, kw["blank"], rate)  # noqa: E731
+    plain_bwd = lambda: J._backward_reference(f, g, w32, b32, labels, seed, kw["blank"],  # noqa: E731
+                                              rate, dlpb, dlpl)
+    with torch.no_grad():
+        kb, kl, _ = J.joint_fused_forward(f, g, w, bias, labels, seed, **kw)
+        pb, pl = plain_fwd()
+        err_f = max((kb - pb).abs().max().item(), (kl - pl).abs().max().item())
+        grads = J.joint_fused_backward(f, g, w, bias, labels, seed, lse, dlpb, dlpl, **kw)
+        # the plain version's f32 sums rounded to the kernel's output dtypes
+        err_b = max((a.float() - b.to(a.dtype).float()).abs().max().item()
+                    for a, b in zip(grads, plain_bwd()))
+        fwd_ms = cuda_ms(lambda: J.joint_fused_forward(f, g, w, bias, labels, seed, **kw),
+                         iters=10)
+        bwd_ms = cuda_ms(lambda: J.joint_fused_backward(f, g, w, bias, labels, seed, lse, dlpb,
+                                                        dlpl, **kw), iters=5)
+        fwd_plain = cuda_ms(plain_fwd, iters=3, warmup=1)
+        bwd_plain = cuda_ms(plain_bwd, iters=3, warmup=1)
+    lines = []
+    for name, ms, plain, err, backward, site in (
+            ("joint_fused_forward", fwd_ms, fwd_plain, err_f, False, 201),
+            ("joint_fused_backward", bwd_ms, bwd_plain, err_b, True, 256)):
+        nbytes, flops = J.work(B, T, U1, H, V1, itemsize=f.element_size(), backward=backward)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        f32_ms = flops / PEAK_F32_FLOPS * 1e3
+        lines.append({
+            "name": name, "route": "cuda",
+            "source": "indic_cl_asr_torch/csrc/joint_fused.cu",
+            "replaces": f"indic_cl_asr_tpu/ops/joint_fused_pallas.py:{site}",
+            "launches": launches[name], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+        })
+        rec[f"{name}_f32_core_bound_ms"] = f32_ms
+        log(f"  {name} B{B} T{T} U+1 {U1} H{H} V+1 {V1} {str(f.dtype).split('.')[-1]} "
+            f"(dropout {rate}): {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {nbytes} B, {flops} flop; {f32_ms:.4f} ms at the f32 CUDA-core "
+            f"rate), max abs err {err:.3e}")
+    return lines
+
+
+def run_cl(dev, rec):
+    """Phase 8: the CL sequence for every method, then the step and joint
+    kernel timings. Returns the kernels' lines."""
+    from indic_cl_asr_torch.data.pipeline import BucketSpec
+
+    import shutil
+
+    root = os.path.join(ROOT, "build", "chip_smoke", "cl")
+    shutil.rmtree(os.path.join(root, "runs"), ignore_errors=True)  # the logs append
+    tasks, tok = make_cl_data(os.path.join(root, "wavs"))
+    spec = BucketSpec(boundaries_sec=(4.0, 8.0), max_tokens=(64, 128))
+    rec["cl"], total = {}, {}
+    for name in CL_METHODS:
+        rec["cl"][name], launches = run_cl_method(dev, name, tasks, tok, spec, root)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    rec["cl_launches"] = total
+    captured = time_cl_step(dev, rec, tasks, tok, spec)
+    return time_joint_kernels(captured, total, rec)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1051,6 +1526,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from indic_cl_asr_torch.ops import _build
 
+    # phases 7-8 run the pallas joint with scripts/config.yaml's
+    # rnnt_remat="none", which it ignores; rnnt_loss_fused warns so on
+    # every such call
+    warnings.filterwarnings("ignore", message="rnnt_remat='none' has no effect")
+
     dev = torch.device("cuda", 0)
     # f32 comparisons in full f32: no TF32 in matmuls or cuDNN convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1060,42 +1540,48 @@ def main() -> int:
     card = nvidia_smi()
     rec = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     print(card, flush=True)
-    log(f"[1/7] device: {torch.cuda.get_device_name(0)} | "
+    log(f"[1/8] device: {torch.cuda.get_device_name(0)} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     secs = _build.build()
     rec["build_s"] = time.perf_counter() - t0
-    log(f"[2/7] build: {rec['build_s']:.1f} s {secs}")
+    log(f"[2/8] build: {rec['build_s']:.1f} s {secs}")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    log("[3/7] kernels vs plain versions on the card")
+    log("[3/8] kernels vs plain versions on the card")
     check_flash(dev, rec)
     check_decode(dev, rec)
     check_flash_backward(dev, rec)
     check_lattice(dev, rec)
+    check_joint(dev, rec)
 
-    log("[4/7] serving slice (flagship width, seeded random weights)")
+    log("[4/8] serving slice (flagship width, seeded random weights)")
     inputs, launches, decode_work, data = run_slice(dev, rec)
 
-    log("[5/7] timing at the serving path's shapes")
+    log("[5/8] timing at the serving path's shapes")
     kernels = time_kernels(inputs, launches, decode_work, rec)
     del inputs
     torch.cuda.empty_cache()
 
-    log("[6/7] training slice (flagship width, bf16, layers 0-11 frozen)")
+    log("[6/8] training slice (flagship width, bf16, layers 0-11 frozen)")
     train_launches, captured, host_batch = run_training(dev, rec, *data)
     kernels += time_training_kernels(captured, train_launches, rec)
     del captured
     torch.cuda.empty_cache()
 
-    log("[7/7] f32 step equality, card kernels vs CPU plain versions")
-    check_step_f32(dev, rec, host_batch)
+    log("[7/8] f32 step equality, card kernels vs CPU plain versions")
+    for impl in ("xla", "pallas"):
+        check_step_f32(dev, rec, host_batch, rnnt_impl=impl)
+
+    log("[8/8] CL sequence (flagship width, rnnt_impl='pallas'; naive, EWC, MAS, LwF)")
+    kernels += run_cl(dev, rec)
     order = ["flash_relpos_mhsa", "flash_relpos_mhsa_backward", "rnnt_alpha",
-             "rnnt_beta", "rnnt_greedy_decode_fused"]
+             "rnnt_beta", "joint_fused_forward", "joint_fused_backward",
+             "rnnt_greedy_decode_fused"]
     kernels.sort(key=lambda k: order.index(k["name"]))
     rec["kernels"] = kernels
     rec["total_s"] = time.perf_counter() - t_start

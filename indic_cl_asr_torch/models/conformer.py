@@ -197,12 +197,15 @@ class BatchNorm(nn.Module):
     semantics: eval mode normalises with the stored statistics; train mode
     with the batch's (over all B x T positions, biased variance
     E[x²] - E[x]² clipped at 0) and updates the stored ones in place,
-    ``ra = momentum·ra + (1 - momentum)·batch``."""
+    ``ra = momentum·ra + (1 - momentum)·batch``, unless ``update_stats`` is
+    off (``batch_stats_frozen``): the JAX package's callers that discard
+    the ``batch_stats`` a train-mode forward returns."""
 
     def __init__(self, C: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(C))
         self.bias = nn.Parameter(torch.zeros(C))
         self.register_buffer("running_mean", torch.zeros(C))
@@ -213,15 +216,32 @@ class BatchNorm(nn.Module):
         if self.training:
             mean = xf.mean(dim=(0, 2))
             var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean.float(), self.running_var.float()
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         y = (xf - mean[:, None]) * mul[:, None]
         return (y + self.bias.float()[:, None]).to(x.dtype)
+
+
+@contextlib.contextmanager
+def batch_stats_frozen(module: nn.Module):
+    """Inside, train-mode BatchNorm normalises with the batch's statistics
+    but leaves the stored ones untouched (EWC's Fisher and MAS's
+    importance batches, the LwF teacher's forward)."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    before = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield module
+    finally:
+        for m, b in zip(norms, before):
+            m.update_stats = b
 
 
 class ConformerConvModule(nn.Module):

@@ -37,8 +37,10 @@ class CTCDecoder(nn.Module):
         self.kernel = nn.Parameter(torch.zeros(cfg.feat_in, cfg.vocab_size_total + 1))
         self.bias = nn.Parameter(torch.zeros(cfg.vocab_size_total + 1))
 
-    def forward(self, encoded: torch.Tensor, lang_ids: torch.Tensor):
-        """encoded [B, T, d] -> f32 log-probs [B, T, V_local + 1], blank last."""
+    def forward(self, encoded: torch.Tensor, lang_ids: torch.Tensor,
+                return_logits: bool = False):
+        """encoded [B, T, d] -> f32 log-probs [B, T, V_local + 1], blank
+        last; with ``return_logits`` also the f32 logits."""
         cfg = self.cfg
         V, L = cfg.vocab_per_lang, cfg.n_langs
         lang = lang_ids.long()
@@ -56,4 +58,5 @@ class CTCDecoder(nn.Module):
         x = encoded.to(dt).float()
         logits = torch.einsum("btd,bdv->btv", x, w.to(dt).float())
         logits = logits + b.to(dt).float()[:, None]
-        return torch.log_softmax(logits, dim=-1)
+        log_probs = torch.log_softmax(logits, dim=-1)
+        return (log_probs, logits) if return_logits else log_probs

@@ -170,8 +170,8 @@ class HybridRNNTCTC(nn.Module):
         g, new_state = self.prediction(label[:, None], state)
         return self.joint.project_pred(g[:, 0]), new_state
 
-    def ctc_logprobs(self, encoded, lang_ids):
-        return self.ctc_decoder(encoded, lang_ids)
+    def ctc_logprobs(self, encoded, lang_ids, return_logits: bool = False):
+        return self.ctc_decoder(encoded, lang_ids, return_logits=return_logits)
 
 
 @torch.no_grad()

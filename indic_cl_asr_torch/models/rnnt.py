@@ -95,8 +95,11 @@ class LSTM(nn.Module):
             # cuDNN packs these (a few MB) into its own buffer on every call
             # and says so; the module holds no flat buffer of its own
             warnings.filterwarnings("ignore", "RNN module weights are not part")
+            # with no dropout inside the LSTM, ``train`` only tells cuDNN to
+            # keep what its backward needs: an eval-mode net that takes
+            # gradients (MAS's surrogate) needs it too
             out, h, c = torch.lstm(x.to(dt), (zeros, zeros), weights, True, 1, 0.0,
-                                   self.training, False, True)
+                                   self.training or torch.is_grad_enabled(), False, True)
         return out, (h[0], c[0].to(torch.float32))
 
     def steps(self, x, h0=None, c0=None):

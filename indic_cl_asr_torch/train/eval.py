@@ -69,6 +69,7 @@ class Transcriber:
 
     @torch.inference_mode()
     def _encode(self, audio, audio_len):
+        self.model.eval()  # a training step leaves the model in train mode
         mel, mel_lens = log_mel_spectrogram(audio, audio_len, self.frontend)
         self.counts["encoder_batches"] += 1
         return self.model.encode(mel, mel_lens)

@@ -1,11 +1,19 @@
-"""Word error rate (own copy of the framework-free metrics).
+"""WER and continual-learning metrics (own copy of the framework-free
+indic_cl_asr_tpu/train/metrics.py).
 
-WER = sum(edit_distance(hyp_words, ref_words)) / sum(len(ref_words)) over
-the eval set (reference utils.py:120-145 `compute_wer`). The continual-
-learning matrix metrics arrive with the CL-driver slice.
+  * WER = sum(edit_distance(hyp_words, ref_words)) / sum(len(ref_words))
+    over the eval set (reference utils.py:120-145 `compute_wer`);
+  * perf matrix P[step, lang] of WERs after each task
+    (utils.py:179-190 `compute_perf_matrix`);
+  * BWT curves: for language i trained at task i,
+    bwt(i, t) = P[i, i] - P[t, i] for t > i (utils.py:192-209
+    `compute_bwt_new`); scalar per-task BWT =
+    sum_{i<t}(P[i][i] - P[t][i]) / max(t, 1) (results.py:385-392).
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 
 def edit_distance_py(a: list, b: list) -> int:
@@ -36,3 +44,46 @@ def wer(refs: list[str], hyps: list[str]) -> float:
         total_errors += edit_distance_py(hyp_words, ref_words)
         total_words += len(ref_words)
     return total_errors / total_words if total_words else 0.0
+
+
+def compute_perf_matrix(
+    val_performance: dict[str, list[dict]], metric: str = "rnnt_wer"
+) -> tuple[np.ndarray, list[str]]:
+    """{lang: [record-per-task, ...]} -> [n_steps, n_langs] matrix (NaN where
+    a language wasn't evaluated yet)."""
+    langs = list(val_performance.keys())
+    max_len = max((len(v) for v in val_performance.values()), default=0)
+    perf = np.full((max_len, len(langs)), np.nan)
+    for j, lang in enumerate(langs):
+        for i, record in enumerate(val_performance[lang]):
+            perf[i, j] = record[metric]
+    return perf, langs
+
+
+def compute_bwt_curves(
+    val_perf: dict[str, list[dict]], metric: str = "rnnt_wer"
+) -> dict[str, list[tuple[int, float]]]:
+    """Per-language (task_index_1based, wer_ii - wer_ti) points."""
+    langs = list(val_perf.keys())
+    curves: dict[str, list[tuple[int, float]]] = {l: [] for l in langs}
+    for i, lang in enumerate(langs):
+        if i >= len(val_perf[lang]):
+            continue
+        wer_ii = val_perf[lang][i][metric]
+        for t in range(i + 1, len(langs)):
+            if t < len(val_perf[lang]):
+                curves[lang].append((t + 1, wer_ii - val_perf[lang][t][metric]))
+    return curves
+
+
+def bwt_scores(perf: np.ndarray) -> np.ndarray:
+    """Scalar BWT per task t over a [step, lang] matrix:
+    sum_{i<t}(P[i, i] - P[t, i]) / max(t, 1)."""
+    n = perf.shape[1]
+    out = np.zeros(n)
+    for t in range(n):
+        acc = 0.0
+        for i in range(t):
+            acc += perf[i][i] - perf[t][i]
+        out[t] = acc / max(t, 1)
+    return out

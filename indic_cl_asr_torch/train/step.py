@@ -30,17 +30,20 @@ from ..audio.features import FrontendConfig, log_mel_spectrogram, output_seq_len
 from ..audio.spec_augment import SpecAugmentConfig, spec_augment
 from ..device import resolve_device
 from ..models.common import Rngs
+from ..ops.ctc_loss import IMPLS as CTC_IMPLS
 from ..ops.ctc_loss import ctc_loss
-from ..ops.rnnt_loss_fused import rnnt_loss_fused
+from ..ops.rnnt_loss_fused import IMPLS as RNNT_IMPLS
+from ..ops.rnnt_loss_fused import REMATS, rnnt_loss_fused
 from .state import AdamW
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """The JAX package's StepConfig, field for field. ``fast_dropout_rng``
-    selects a JAX PRNG implementation and has no effect here;
-    ``rnnt_impl="pallas"``, ``rnnt_remat="save_logits"`` and
-    ``ctc_impl="optax"`` are not ported yet and raise."""
+    """The JAX package's StepConfig, field for field, with its values:
+    ``rnnt_impl`` "xla" (the chunked joint) or "pallas" (the fused joint
+    kernels), ``rnnt_remat`` "full", "save_logits" or "none", ``ctc_impl``
+    "native" or "optax". ``fast_dropout_rng`` selects a JAX PRNG
+    implementation and has no effect here."""
 
     frontend: FrontendConfig = FrontendConfig()
     spec_augment: SpecAugmentConfig = SpecAugmentConfig()
@@ -54,6 +57,13 @@ class StepConfig:
     # every row uses lang_ids[0]'s head: true of the CL workload, where each
     # task trains one language; the loss is wrong on a mixed batch
     uniform_lang_head: bool = False
+
+    def __post_init__(self):
+        for name, value, allowed in (("rnnt_impl", self.rnnt_impl, RNNT_IMPLS),
+                                     ("rnnt_remat", self.rnnt_remat, REMATS),
+                                     ("ctc_impl", self.ctc_impl, CTC_IMPLS)):
+            if value not in allowed:
+                raise ValueError(f"{name}={value!r}: one of {allowed}")
 
 
 def batch_to_device_dict(batch, device) -> dict:
@@ -104,10 +114,13 @@ def hybrid_forward_tensors(model, step_cfg: StepConfig, audio, audio_lens,
 
 
 def hybrid_forward_loss(model, step_cfg: StepConfig, batch: dict,
-                        rngs: Rngs | None, train: bool = True):
+                        rngs: Rngs | None, train: bool = True,
+                        return_pieces: bool = False):
     """(loss, aux) of one batch dict. ``batch["n_valid"]`` marks
     how many leading rows are real: the repeat rows that pad a bucket's
-    last batch are left out of both losses' means."""
+    last batch are left out of both losses' means. With ``return_pieces``
+    it returns (loss, aux, (f_proj, g_proj, ctc_lp, head_w, head_b)), the
+    tensors of this very forward that LwF distils."""
     f_proj, g_proj, ctc_lp, head_w, head_b, _, enc_lens = hybrid_forward_tensors(
         model, step_cfg, batch["audio"], batch["audio_len"], batch["tokens"],
         batch["lang_ids"], rngs, train, batch.get("audio_len_host"),
@@ -124,16 +137,17 @@ def hybrid_forward_loss(model, step_cfg: StepConfig, batch: dict,
         chunk_size=step_cfg.rnnt_chunk_size,
         dropout_rate=cfg.joint_dropout if train else 0.0,
         generator=rngs.device if rngs is not None else None,
+        host_generator=rngs.host if rngs is not None else None,
         impl=step_cfg.rnnt_impl, row_mask=row_mask,
         uniform_head=step_cfg.uniform_lang_head, remat=step_cfg.rnnt_remat,
     )
-    if step_cfg.ctc_impl != "native":
-        raise NotImplementedError(f"ctc_impl={step_cfg.ctc_impl!r}: the port has 'native'")
     ctc = ctc_loss(ctc_lp, enc_lens, tokens, token_len, blank=cfg.blank_local,
-                   reduction="mean_batch", row_mask=row_mask)
+                   reduction="mean_batch", impl=step_cfg.ctc_impl, row_mask=row_mask)
     w = step_cfg.ctc_loss_weight
     loss = (1.0 - w) * rnnt + w * ctc
     aux = {"train_rnnt_loss": rnnt, "train_ctc_loss": ctc, "train_loss": loss}
+    if return_pieces:
+        return loss, aux, (f_proj, g_proj, ctc_lp, head_w, head_b)
     return loss, aux
 
 

@@ -226,7 +226,7 @@ def test_lattice_kernels_match_plain(cuda, B, T, U1, t_lens, u_lens):
         assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
 
 
-def _tiny_step(device, batch_np, seed):
+def _tiny_step(device, batch_np, seed, rnnt_impl="xla"):
     """One training step of a tiny f32 model (flash attention, dropout on
     the attention probabilities only, SpecAugment on, dither off) on
     ``device``: (aux, grads by name, model)."""
@@ -252,7 +252,7 @@ def _tiny_step(device, batch_np, seed):
     opt.step = record
     step_cfg = StepConfig(frontend=FrontendConfig(n_mels=32, dither=0.0),
                           spec_augment=SpecAugmentConfig(freq_masks=1, time_masks=2),
-                          rnnt_chunk_size=8)
+                          rnnt_chunk_size=8, rnnt_impl=rnnt_impl)
     step = make_train_step(model, step_cfg, opt, device=device)
     batch = {k: (torch.from_numpy(v).to(device) if hasattr(v, "shape") else v)
              for k, v in batch_np.items()}
@@ -299,3 +299,151 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
     for name, t in sd_p.items():
         if name.endswith(("running_mean", "running_var")):
             assert (sd_c[name].cpu() - t).abs().max() <= 1e-5, name
+
+
+def _joint_inputs(B, T, U1, H, V1, dtype, dev, seed=0):
+    """f, g (compute dtype), two languages' heads gathered per row (f32),
+    labels_pad with an out-of-range label and the pad column 0."""
+    g_ = torch.Generator().manual_seed(seed)
+    f = (0.5 * torch.randn((B, T, H), generator=g_)).to(dtype)
+    g = (0.5 * torch.randn((B, U1, H), generator=g_)).to(dtype)
+    heads = torch.randn((2, H, V1), generator=g_) * H ** -0.5 * 4
+    hb = 0.1 * torch.randn((2, V1), generator=g_)
+    lang = torch.arange(B) % 2
+    labels = torch.randint(0, V1 - 1, (B, U1), generator=g_, dtype=torch.int32)
+    labels[:, -1] = 0
+    labels[0, 0] = V1 + 5
+    cots = [torch.randn((B, T, U1), generator=g_) for _ in range(2)]
+    for c in cots:
+        c[:, T - T // 4:] = 0.0  # frames past a row's length get no cotangent
+    to = lambda t: t.to(dev)  # noqa: E731
+    return [to(f), to(g), to(heads[lang]), to(hb[lang]), to(labels)], [to(c) for c in cots]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,grad_tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+@pytest.mark.parametrize("B,T,U1,H,V1", [(16, 204, 129, 640, 257), (3, 37, 9, 64, 33),
+                                         (2, 5, 3, 640, 257), (2, 70, 130, 96, 300)])
+def test_joint_fused_kernels_match_plain(cuda, dtype, grad_tol, rate, B, T, U1, H, V1):
+    """Both slabs atol 1e-5 (the joint input is rounded the same way on
+    both sides; f32 sums in another order); dW and db within 1e-5 of
+    max|ref| (f32 outputs); df and dg within 1e-5 of max|ref| in f32 and
+    1e-2 in bf16, where both sides round their f32 sums to bf16 once (one
+    bf16 step is 2^-8 of the value) and f32 atomics sum in another order."""
+    from indic_cl_asr_torch.ops import joint_fused as J
+
+    args, (dlpb, dlpl) = _joint_inputs(B, T, U1, H, V1, dtype, cuda, seed=T + U1)
+    kw = dict(blank=V1 - 1, dropout_rate=rate)
+    leaves = [a.clone().requires_grad_(True) for a in args[:4]]
+    n0 = (J.joint_fused_forward.launches, J.joint_fused_backward.launches)
+    lpb, lpl = J.joint_slabs(*leaves, args[4], 1234, **kw)
+    got = torch.autograd.grad((lpb * dlpb + lpl * dlpl).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (J.joint_fused_forward.launches - n0[0], J.joint_fused_backward.launches - n0[1]) == (1, 1)
+    leaves_p = [a.clone().requires_grad_(True) for a in args[:4]]
+    rpb, rpl = J.joint_slabs_reference(*leaves_p, args[4], 1234, **kw)
+    want = torch.autograd.grad((rpb * dlpb + rpl * dlpl).sum(), leaves_p)
+    assert (lpb - rpb).abs().max().item() <= 1e-5
+    assert (lpl - rpl).abs().max().item() <= 1e-5
+    for name, a, b, tol in zip(("df", "dg", "dW", "db"), got, want,
+                               (grad_tol, grad_tol, 1e-5, 1e-5)):
+        assert a.dtype == b.dtype
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= tol * b.float().abs().max().item(), (name, err)
+
+
+@pytest.mark.gpu
+def test_joint_dropout_bits_match_plain(cuda):
+    from indic_cl_asr_torch.ops import joint_fused as J
+
+    bits = J.joint_dropout_bits_kernel(987654321, 3, 41, 17, 640, cuda)
+    want = J.dropout_bits(987654321, 3, 17, 640, 0, 41, cuda)
+    assert torch.equal(bits, want)
+    keep = (bits <= keep_threshold(0.2)).double().mean().item()
+    assert abs(keep - 0.8) < 2e-3
+
+
+@pytest.mark.gpu
+def test_joint_kernels_reject_what_they_do_not_take(cuda):
+    from indic_cl_asr_torch.ops import joint_fused as J
+
+    args, _ = _joint_inputs(2, 5, 3, 2048, 9, torch.float32, cuda)
+    with pytest.raises(ValueError):  # H=2048 in f32 overflows shared memory
+        J.joint_slabs(*args, 0, blank=8)
+    args, _ = _joint_inputs(2, 5, 3, 16, 9, torch.float16, cuda)
+    with pytest.raises(TypeError):
+        J.joint_slabs(*args, 0, blank=8)
+
+
+@pytest.mark.gpu
+def test_tiny_pallas_train_step_on_the_card_matches_the_cpu(cuda):
+    """The step with ``rnnt_impl="pallas"``: the joint kernels on the card
+    against their plain versions on the CPU, at the bars of the xla step."""
+    import numpy as np
+
+    from indic_cl_asr_torch.ops import joint_fused as J
+
+    rng = np.random.default_rng(5)
+    B, S, U = 4, 8000, 6
+    batch = {"audio": (0.1 * rng.standard_normal((B, S))).astype(np.float32),
+             "audio_len": np.array([S, S - 1500, S // 2, S // 4], np.int32),
+             "tokens": rng.integers(1, 16, (B, U)).astype(np.int32),
+             "token_len": np.array([U, U - 2, U - 1, 3], np.int32),
+             "lang_ids": np.array([0, 1, 2, 3], np.int32), "n_valid": 3}
+    n0 = (J.joint_fused_forward.launches, J.joint_fused_backward.launches)
+    aux_c, grads_c, _ = _tiny_step(cuda, batch, seed=3, rnnt_impl="pallas")
+    torch.cuda.synchronize()
+    assert (J.joint_fused_forward.launches - n0[0], J.joint_fused_backward.launches - n0[1]) == (1, 1)
+    aux_p, grads_p, _ = _tiny_step("cpu", batch, seed=3, rnnt_impl="pallas")
+    for k in aux_p:
+        assert abs(aux_c[k] - aux_p[k]) <= 1e-4 * abs(aux_p[k]), k
+    for name, g in grads_p.items():
+        ref = grads_p[name.replace("linear_k.bias", "linear_k.weight")
+                      .replace("depthwise_conv.bias", "depthwise_conv.weight")]
+        assert (grads_c[name] - g).abs().max() <= 1e-3 * ref.abs().max(), name
+
+
+@pytest.mark.gpu
+def test_mas_importance_batch_on_the_card_matches_the_cpu(cuda):
+    """MAS's surrogate runs the prediction net in eval mode and takes its
+    gradient (cuDNN's LSTM backward must be asked for in its forward): the
+    importance of one batch on the card against the CPU's, within 1e-3 of
+    max|Omega| per parameter, the BatchNorm statistics untouched."""
+    import numpy as np
+
+    from indic_cl_asr_torch.audio.features import FrontendConfig
+    from indic_cl_asr_torch.cl import mas as M
+    from indic_cl_asr_torch.cl.methods import MASMethod
+    from indic_cl_asr_torch.train.state import make_optimizer
+    from indic_cl_asr_torch.train.step import StepConfig
+
+    rng = np.random.default_rng(6)
+    B, S, U = 3, 8000, 5
+    batch_np = {"audio": (0.1 * rng.standard_normal((B, S))).astype(np.float32),
+                "audio_len": np.array([S, S - 1500, S // 2], np.int32),
+                "tokens": rng.integers(1, 16, (B, U)).astype(np.int32),
+                "token_len": np.array([U, U - 2, 3], np.int32),
+                "lang_ids": np.array([1, 1, 1], np.int32), "n_valid": 2}
+    omega = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = init_weights_(HybridRNNTCTC(tiny_config(), device=dev),
+                              torch.Generator().manual_seed(0))
+        opt = make_optimizer(model, lr=1e-3, freeze_encoder_till=1, device=dev)
+        step_cfg = StepConfig(frontend=FrontendConfig(n_mels=32, dither=0.0),
+                              rnnt_chunk_size=8, uniform_lang_head=True)
+        method = MASMethod(M.MASConfig(mas_ctx=0.3), model, step_cfg, opt)
+        stats = {n: b.clone() for n, b in model.named_buffers()}
+        batch = {k: (torch.from_numpy(v).to(dev) if hasattr(v, "shape") else v)
+                 for k, v in batch_np.items()}
+        acc = method.importance_batch(method.begin_importance(), batch,
+                                      torch.Generator().manual_seed(1))
+        assert all(torch.equal(b, stats[n]) for n, b in model.named_buffers())
+        omega[dev.type] = {n: v.cpu() for n, v in acc.items()}
+    assert omega["cuda"].keys() == omega["cpu"].keys()
+    for n, want in omega["cpu"].items():
+        # the key and depthwise conv biases have no gradient in exact
+        # arithmetic: their residue is held to their weights' scale
+        ref = omega["cpu"][n.replace("linear_k.bias", "linear_k.weight")
+                          .replace("depthwise_conv.bias", "depthwise_conv.weight")]
+        assert (omega["cuda"][n] - want).abs().max() <= 1e-3 * ref.abs().max(), n

@@ -27,6 +27,10 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import indic_cl_asr_torch.train.eval, indic_cl_asr_torch.models.convert\n"
         "import indic_cl_asr_torch.train.step, indic_cl_asr_torch.data.pipeline\n"
+        "import indic_cl_asr_torch.train.driver, indic_cl_asr_torch.train.logger\n"
+        "import indic_cl_asr_torch.cl.methods, indic_cl_asr_torch.cl.ewc\n"
+        "import indic_cl_asr_torch.cl.mas, indic_cl_asr_torch.cl.lwf\n"
+        "import indic_cl_asr_torch.utils.checkpoint, indic_cl_asr_torch.ops.joint_fused\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN,)
     )

@@ -151,7 +151,7 @@ def test_fused_remat_full_reuses_the_forward_dropout_mask():
     assert torch.equal(out["none"][0], out["full"][0])
     for a, c in zip(out["none"][1], out["full"][1]):
         torch.testing.assert_close(a, c, rtol=0, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        rnnt_loss_fused(*_t(f, g, w, b, labels, fl, ul), blank=8, remat="save_logits")
-    with pytest.raises(NotImplementedError):
-        rnnt_loss_fused(*_t(f, g, w, b, labels, fl, ul), blank=8, impl="pallas")
+    with pytest.raises(ValueError):
+        rnnt_loss_fused(*_t(f, g, w, b, labels, fl, ul), blank=8, remat="save_all")
+    with pytest.raises(ValueError):
+        rnnt_loss_fused(*_t(f, g, w, b, labels, fl, ul), blank=8, impl="triton")
