@@ -6,11 +6,11 @@
 Phases, each of which fails the script when it fails:
 
 1. Device: a CUDA card must be present; prints its name and power limit.
-2. Build: compiles the four CUDA sources in indic_cl_asr_torch/csrc
+2. Build: compiles the five CUDA sources in indic_cl_asr_torch/csrc
    (flash_mhsa.cu: flash forward and backward; decode_fused.cu;
    rnnt_lattice.cu: alpha and beta; joint_fused.cu: the fused joint
-   forward and backward) with nvcc for sm_90a, one nvcc per source,
-   started together.
+   forward and backward; beam_fused.cu: the fused beam) with nvcc for
+   sm_90a, one nvcc per source, started together.
 3. Kernels against their plain PyTorch versions on the card:
    flash rel-pos attention at B16 T204 E512 H8 in f32 (max abs err
    <= 1e-4) and bf16 (<= 2e-2), plus T in {1, 37, 512}, a row with
@@ -18,7 +18,13 @@ Phases, each of which fails the script when it fails:
    (B16, T 204 and 300 in one language, and T 204 with the rows spread
    over the 12 languages; four draws each), token-exact in f32, and in
    bf16 at least 90% of the plain version's tokens reproduced before
-   their row's first divergence (see check_decode for why tokens).
+   their row's first divergence (see check_decode for why tokens). The
+   fused beam (B16 K4 P4, max_expansions 10, max_out 256) on the same
+   cases plus a lens-0 row beside rows capped by max_out 16, and beam 1:
+   in f32 ids and lens equal and scores within 1e-5·|score| in every row
+   but those where the plain version's trace shows two competing
+   candidates within 1e-5 of each other (counted and printed); in bf16
+   the decode's token bar.
    The flash backward against autograd through the plain version on the
    same cases, with dropout 0 and 0.1 (the same bits on both sides): max
    error per gradient <= 1e-4·max|ref| in f32 and 2e-2·max|ref| in bf16;
@@ -40,11 +46,17 @@ Phases, each of which fails the script when it fails:
    bf16, flash attention) with seeded random weights, transcribed with the
    RNNT and CTC decoders through ``Transcriber``. The launch counts are
    reset just before and read just after this run: flash launches must be
-   17 x the encoder batches and decode launches the RNNT batches. Then the
-   same model in f32, once through the kernels and once through the plain
-   paths (eager attention, frame-sync decode): identical hypotheses.
-5. Timing at the serving path's shapes (CUDA events): each kernel, its
-   plain version, and its bound (bytes over 3.35 TB/s or operations over
+   17 x the encoder batches and decode launches the RNNT batches. Then
+   the beam path, ``transcribe(entries, "rnnt_beam")`` (B16, beam 4,
+   max_expansions 10, max_out 256) with its own counts reset and read:
+   beam launches equal to the rnnt_beam batches, flash 17 x the encoder
+   batches; and label-looping greedy, ``rnnt_beam_host`` and ``ctc_beam``
+   on two short utterances each. Then the same model in f32, once through
+   the kernels and once through the plain paths (eager attention,
+   frame-sync decode, the batched beam): identical RNNT, CTC and rnnt_beam
+   hypotheses, and label-looping greedy identical to both greedy paths.
+5. Timing at the serving path's shapes (CUDA events): each kernel (the
+   beam at the long bucket's batch), its plain version, and its bound (bytes over 3.35 TB/s or operations over
    the 989 TFLOP/s bf16 peak, whichever is larger).
 6. The training slice: the flagship model (bf16, flash attention, layers
    0-11 frozen, the flagship dropouts, SpecAugment on) trained with
@@ -348,6 +360,111 @@ def check_decode(dev, rec, seeds=4):
     rec["decode_f32_max_id_diff"] = max_diff
 
 
+TIE_REL = 1e-5  # a summation-order tie: relative gap of two competing candidates
+
+
+def check_beam(dev, rec, seeds=4):
+    """The fused beam against its plain version (the batched beam over the
+    model's own steps) at flagship widths, B16 K4 P4, max_expansions 10,
+    max_out 256: T 204 and 300 in one language and T 204 over the 12
+    languages, ``seeds`` draws each, with each language's blank bias set as
+    check_decode sets it; then a row with lens 0 next to rows that hit a
+    max_out of 16, and beam 1.
+
+    f32: ids and lens equal in every row and scores within 1e-5·|score|.
+    A row that differs passes only where the plain version's trace shows a
+    decision between two candidates within TIE_REL of each other (the
+    kernel sums in another order than cuBLAS); such rows are counted and
+    printed. bf16: the check_decode token bar (at least 90% of the plain
+    version's tokens reproduced before their row's first divergence)."""
+    import torch
+
+    from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC, flagship_config
+    from indic_cl_asr_torch.ops.beam_fused import (
+        rnnt_beam_search_fused,
+        rnnt_beam_search_fused_reference,
+    )
+
+    K = dict(beam_size=4, max_expansions=10, max_out=256)
+    cases = [(f"T{T} {name}", T, mixed, K, False) for name, T, mixed in
+             (("lang 3", 204, False), ("lang 3", 300, False), ("12 langs", 204, True))
+             for _ in range(seeds)]
+    cases += [("T204 lens 0, max_out 16", 204, False, dict(K, max_out=16), True),
+              ("T204 beam 1", 204, False, dict(K, beam_size=1), False)]
+    out = {}
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        model = HybridRNNTCTC(flagship_config(dtype, n_layers=1), device=dev)
+        serving_weights_(model, seed=1)
+        rows_same = rows_all = tokens = kept = 0
+        ties, firsts = [], []
+        for i, (name, T, mixed, kw, lens0) in enumerate(cases):
+            g = torch.Generator().manual_seed(1000 * i + T)
+            f_proj = torch.randn((16, T, 640), generator=g).to(dev, dtype)
+            lens = torch.randint(T // 2, T + 1, (16,), generator=g)
+            if lens0:
+                lens[1] = 0
+            lens = lens.to(dev)
+            lang = (torch.arange(16) % 12 if mixed else torch.full((16,), 3))
+            lang = lang.to(device=dev, dtype=torch.int32)
+            trace = []
+            with torch.inference_mode():
+                for l in lang.unique().tolist():  # each language its own bias
+                    r = lang == l
+                    model.joint.head_bias[l, -1] = decode_blank_bias(
+                        model, f_proj[r], lens[r], lang[r], 0.97)
+                ids, n, sc = rnnt_beam_search_fused(f_proj, lens, lang, model, **kw)
+                ids_p, n_p, sc_p = rnnt_beam_search_fused_reference(
+                    f_proj, lens, lang, model, trace=trace, **kw)
+            torch.cuda.synchronize()
+            same = (ids == ids_p).all(dim=1) & (n == n_p)
+            gap = torch.stack(trace).amin(dim=0) if trace else torch.full_like(sc_p, math.inf)
+            tag = f"B16 {name} draw {i} {dname}"
+            n_tok = int(n_p.sum())
+            log(f"  beam {tag}: {int(same.sum())}/16 rows identical, tokens per row "
+                f"{n_p.tolist()}")
+            if n_tok == 0:
+                raise AssertionError(f"beam {tag}: no tokens emitted, nothing compared")
+            if lens0 and (int(n[1]) != 0 or int((n_p == 16).sum()) == 0):
+                raise AssertionError(f"beam {tag}: lens-0 row or max_out cap not exercised")
+            lost = 0
+            for r in (~same).nonzero().flatten().tolist():
+                diff = (ids[r] != ids_p[r]).nonzero().flatten()
+                first = int(diff[0]) if len(diff) else int(min(n[r], n_p[r]))
+                lost += max(int(n_p[r]) - first, 0)
+                firsts.append([first, int(n_p[r])])
+                tie = float(gap[r]) <= TIE_REL
+                log(f"    row {r}: first divergent position {first} (lens {int(n[r])} vs "
+                    f"{int(n_p[r])}), plain's smallest decision gap {float(gap[r]):.3e}"
+                    f"{' (a tie)' if tie else ''}")
+                if dtype == torch.float32:
+                    if not tie:
+                        raise AssertionError(f"beam {tag} row {r}: differs in f32 without a tie")
+                    ties.append({"case": tag, "row": r, "gap": float(gap[r])})
+            if dtype == torch.float32:
+                err = ((sc - sc_p).abs() / sc_p.abs().clamp(min=1.0))[same]
+                e = float(err.max()) if len(err) else 0.0
+                max_err = max(max_err, float((sc - sc_p).abs()[same].max()) if len(err) else 0.0)
+                if e > 1e-5:
+                    raise AssertionError(f"beam {tag}: score rel err {e} > 1e-5")
+            rows_same, rows_all = rows_same + int(same.sum()), rows_all + 16
+            tokens, kept = tokens + n_tok, kept + n_tok - lost
+        share = kept / tokens
+        out[dname] = {"rows_identical": rows_same, "rows": rows_all, "tokens": tokens,
+                      "tokens_before_divergence": kept, "share": share,
+                      "first_divergent_of_len": firsts, "f32_ties": ties}
+        log(f"  beam {dname}: {rows_same}/{rows_all} rows identical; {kept} of {tokens} "
+            f"plain tokens reproduced before their row's first divergence ({share:.4f})"
+            + (f"; {len(ties)} rows differ at a summation-order tie" if dtype == torch.float32
+               else ""))
+        if share < 0.9:
+            raise AssertionError(f"beam {dname}: token share {share:.4f} < 0.9")
+        del model
+    rec["beam_vs_plain"] = out
+    rec["beam_f32_max_abs_score_err"] = max_err
+
+
 WORDS = {"hindi": ["namaste", "dhanyavad", "pani", "ghar", "samay", "kal", "aaj"],
          "bengali": ["nomoshkar", "dhonnobad", "jol", "bari", "shomoy", "kal", "aj"]}
 
@@ -463,31 +580,88 @@ def run_slice(dev, rec):
         f"({rec['slice_bf16']['ctc_ms_per_batch']:.2f} ms/batch)")
     rec["profile_rnnt"] = profile_pass(tr, entries, (t1 - t0) * 1e3)
     enc_inputs = capture_main_path_inputs(model, tr.frontend, long_batch)
+    launches = {**launches, **run_beam_path(tr, entries, rec)}
+    short = [e for e in entries if spec.bucket_of(e.duration) == 0][:2]
+    side = {"labelsync": transcriber(model, greedy_impl="labelsync").transcribe(short, "rnnt"),
+            "rnnt_beam_host": tr.transcribe(short, "rnnt_beam_host"),
+            "ctc_beam": tr.transcribe(short, "ctc_beam")}
+    for d, h in side.items():
+        if len(h) != 2 or not all(isinstance(s, str) for s in h):
+            raise AssertionError(f"{d}: malformed hypotheses")
+    log(f"  bf16 on two short utterances: {side}")
+    rec["side_decoders_bf16"] = side
 
     # --- f32: through the kernels, and through the plain paths ---
     f32 = {}
-    for name, attn, greedy in (("kernels", "flash", "fused"), ("plain", "xla", "framesync")):
+    decoders = ("rnnt", "ctc", "rnnt_beam")
+    for name, attn, greedy, beam in (("kernels", "flash", "fused", "fused"),
+                                     ("plain", "xla", "framesync", "xla")):
         m = HybridRNNTCTC(flagship_config(torch.float32, attn_impl=attn), device=dev)
         serving_weights_(m, seed=0, blank_bias=biases)
-        t = transcriber(m, greedy_impl=greedy)
-        f32[name] = {d: t.transcribe(entries, d) for d in ("rnnt", "ctc")}
+        t = transcriber(m, greedy_impl=greedy, beam_impl=beam)
+        f32[name] = {d: t.transcribe(entries, d) for d in decoders}
+        if name == "plain":
+            f32["labelsync"] = {"rnnt": transcriber(m, greedy_impl="labelsync").transcribe(
+                entries, "rnnt")}
         del m, t
         torch.cuda.empty_cache()
-    for d in ("rnnt", "ctc"):
-        a, b = f32["kernels"][d], f32["plain"][d]
+    pairs = [(d, "kernels", "plain") for d in decoders]
+    pairs += [("rnnt", "labelsync", "plain"), ("rnnt", "labelsync", "kernels")]
+    for d, x, y in pairs:
+        a, b = f32[x][d], f32[y][d]
         bad = [i for i in range(len(a)) if a[i] != b[i]]
-        log(f"  f32 {d}: {len(a) - len(bad)}/{len(a)} hypotheses identical "
-            "(kernels vs plain)")
+        log(f"  f32 {d}: {len(a) - len(bad)}/{len(a)} hypotheses identical ({x} vs {y})")
         if bad:
             i = bad[0]
-            raise AssertionError(f"f32 {d} utt {i}: {a[i]!r} != {b[i]!r}")
+            raise AssertionError(f"f32 {d} utt {i}: {a[i]!r} != {b[i]!r} ({x} vs {y})")
     rec["slice_f32_identical"] = True
     return enc_inputs, launches, decode_work, (entries, tok, langs)
 
 
-def profile_pass(tr, entries, wall_ms, top=12):
-    """torch.profiler over one RNNT pass of the slice (after the counted
-    run): device-busy time (the sum of the kernels' and copies' device
+def run_beam_path(tr, entries, rec):
+    """The slice's beam path: ``transcribe(entries, "rnnt_beam")`` through
+    the fused beam kernel, with the counts reset just before and read just
+    after. Returns its launches."""
+    import torch
+
+    from indic_cl_asr_torch.ops import beam_fused as bfm
+    from indic_cl_asr_torch.ops.flash_mhsa import flash_relpos_mhsa
+
+    tr.transcribe(entries, "rnnt_beam")  # warm-up
+    tr.counts.clear()
+    flash_relpos_mhsa.launches = 0
+    bfm.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyps = tr.transcribe(entries, "rnnt_beam")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"rnnt_beam_search_fused": bfm.rnnt_beam_search_fused.launches}
+    counts = dict(tr.counts)
+    work = bfm.work_counts()
+    log(f"  rnnt_beam: launches {launches}, flash {flash_relpos_mhsa.launches}, batches "
+        f"{counts}, beam work {work}")
+    if launches["rnnt_beam_search_fused"] != counts["rnnt_beam_batches"]:
+        raise AssertionError("beam launches != rnnt_beam batches")
+    if flash_relpos_mhsa.launches != N_LAYERS * counts["encoder_batches"]:
+        raise AssertionError("flash launches != 17 x encoder batches on the beam path")
+    if len(hyps) != len(entries) or not all(isinstance(s, str) for s in hyps) or not any(hyps):
+        raise AssertionError("rnnt_beam: malformed or all-empty hypotheses")
+    n_b = counts["rnnt_beam_batches"]
+    rec["slice_bf16_beam"] = {
+        "utterances": len(entries), "batches": n_b, "s": wall,
+        "utts_per_s": len(entries) / wall, "ms_per_batch": wall * 1e3 / n_b,
+        "launches": launches, "work": work, "example": hyps[0][:80],
+    }
+    log(f"  bf16 slice: rnnt_beam {len(entries) / wall:.2f} utts/s "
+        f"({wall * 1e3 / n_b:.2f} ms/batch)")
+    rec["profile_rnnt_beam"] = profile_pass(tr, entries, wall * 1e3, decoder="rnnt_beam")
+    return launches
+
+
+def profile_pass(tr, entries, wall_ms, top=12, decoder="rnnt"):
+    """torch.profiler over one pass of the slice through ``decoder`` (after
+    the counted run): device-busy time (the sum of the kernels' and copies' device
     times on the one stream, against ``wall_ms``, the same pass timed
     without the profiler) and the kernels that take the most of it."""
     import torch
@@ -496,14 +670,14 @@ def profile_pass(tr, entries, wall_ms, top=12):
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tr.transcribe(entries, "rnnt")
+        tr.transcribe(entries, decoder)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     rows = [{"name": e.key[:90], "calls": e.count,
              "device_ms": e.self_device_time_total / 1e3} for e in events[:top]]
-    log(f"  profile (one rnnt pass, {len(entries)} utts): device busy "
+    log(f"  profile (one {decoder} pass, {len(entries)} utts): device busy "
         f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall unprofiled "
         f"(idle share {1 - busy_ms / wall_ms:.3f})")
     for r in rows:
@@ -619,7 +793,53 @@ def time_kernels(model_inputs, launches, decode_work_main, rec):
     rec["decode_bf16_main_rows_identical"] = rows
     rec["decode_work_per_launch"] = work_each
     rec["decode_work_main_path"] = decode_work_main
+    lines.append(time_beam(model_inputs, launches, rec))
     return lines
+
+
+def time_beam(model_inputs, launches, rec):
+    """The fused beam at the long bucket's batch (B16 K4 P4,
+    max_expansions 10, max_out 256, bf16): CUDA events over the kernel and
+    its plain version, and its bound over the work its counters report."""
+    import torch
+
+    from indic_cl_asr_torch.ops import beam_fused as bfm
+
+    f_proj, enc_lens = model_inputs["f_proj"], model_inputs["enc_lens"]
+    args = (f_proj, enc_lens, model_inputs["lang"], model_inputs["model"])
+    kw = dict(beam_size=4, max_expansions=10, max_out=256)
+    with torch.inference_mode():
+        ids, n, _ = bfm.rnnt_beam_search_fused(*args, **kw)
+        ids_p, n_p, _ = bfm.rnnt_beam_search_fused_reference(*args, **kw)
+        rows = int(((ids == ids_p).all(dim=1) & (n == n_p)).sum())
+        bfm.reset_counts()
+        ms = cuda_ms(lambda: bfm.rnnt_beam_search_fused(*args, **kw), iters=5, warmup=0)
+        work_each = {k_: v_ // 5 for k_, v_ in bfm.work_counts().items()}
+        # one call: the plain version's seconds are host-bound, and its
+        # warm-up already ran above
+        plain = cuda_ms(lambda: bfm.rnnt_beam_search_fused_reference(*args, **kw),
+                        iters=1, warmup=0)
+    B, T, Hj = f_proj.shape
+    n_langs = int(model_inputs["lang"].unique().numel())
+    nbytes, flops = bfm.work(B, T, Hj, 640, 257, work_each["joint_evals"],
+                             work_each["lstm_steps"], n_langs=n_langs, itemsize=2)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"  beam B{B} T{T} K4 bf16: {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {nbytes} B, {flops} flop), work {work_each}, tokens {n.tolist()}, "
+        f"bf16 rows identical to plain {rows}/{B}")
+    rec["beam_bf16_main_rows_identical"] = rows
+    rec["beam_work_per_launch"] = work_each
+    return {
+        "name": "rnnt_beam_search_fused", "route": "cuda",
+        "source": "indic_cl_asr_torch/csrc/beam_fused.cu",
+        "replaces": "indic_cl_asr_tpu/ops/beam_fused_pallas.py:468",
+        "launches": launches["rnnt_beam_search_fused"],
+        # largest absolute score difference over the f32 rows of phase 3
+        # whose ids equal the plain version's
+        "max_abs_err": rec["beam_f32_max_abs_score_err"],
+        "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,
+    }
 
 
 def grad_err(got, want, dout):
@@ -1555,6 +1775,7 @@ def main() -> int:
     log("[3/8] kernels vs plain versions on the card")
     check_flash(dev, rec)
     check_decode(dev, rec)
+    check_beam(dev, rec)
     check_flash_backward(dev, rec)
     check_lattice(dev, rec)
     check_joint(dev, rec)
@@ -1581,7 +1802,7 @@ def main() -> int:
     kernels += run_cl(dev, rec)
     order = ["flash_relpos_mhsa", "flash_relpos_mhsa_backward", "rnnt_alpha",
              "rnnt_beta", "joint_fused_forward", "joint_fused_backward",
-             "rnnt_greedy_decode_fused"]
+             "rnnt_greedy_decode_fused", "rnnt_beam_search_fused"]
     kernels.sort(key=lambda k: order.index(k["name"]))
     rec["kernels"] = kernels
     rec["total_s"] = time.perf_counter() - t_start

@@ -39,51 +39,16 @@
 // a JAX gather clamps). Outputs ids [B, max_out], lens [B];
 // work[0] += joint evaluations, work[1] += LSTM steps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "decode_common.cuh"
 
 namespace {
+
+using namespace decode_common;
 
 // 640 threads split every flagship mat-vec evenly: the gates' 320 column
 // groups of 8 bf16 twice over, the projection's 80 eight times, the
 // head's 33 nineteen times
 constexpr int MAX_THREADS = 640;
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ float rnd(float x);
-template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
-template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* out) {
-    const float4 r = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = r.x; out[1] = r.y; out[2] = r.z; out[3] = r.w;
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-};
 
 __host__ __device__ inline int split_of(int threads, int groups) {
   const int ks = threads / groups;
@@ -138,8 +103,6 @@ __device__ __forceinline__ float gather_sum(const float* part, int N, int KS, in
   for (int s = 1; s < KS; ++s) acc += part[s * N + n];
   return acc;
 }
-
-__device__ __forceinline__ float sigm(float x) { return 1.f / (1.f + expf(-x)); }
 
 struct Smem {
   float *pa, *pb, *g, *x, *emb, *h, *c, *rv;

@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``build/torch_kernels/lib<name>-<hash>.so`` inside the
 checkout, at first use, then loaded with ``ctypes``. The file name carries
-a hash of the source, so an edited kernel is rebuilt and a stale library
-is never loaded. Nothing is built when a module is imported: only a launch
+a hash of the source and of the shared headers (``csrc/*.cuh``), so an
+edited kernel is rebuilt and a stale library is never loaded. Nothing is built when a module is imported: only a launch
 (or an explicit ``build()``) compiles.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -25,7 +25,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("flash_mhsa", "decode_fused", "rnnt_lattice", "joint_fused")
+SOURCES = ("flash_mhsa", "decode_fused", "rnnt_lattice", "joint_fused", "beam_fused")
 ARCH = "arch=compute_90a,code=sm_90a"
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -49,7 +49,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
+    # the source and every shared header under csrc/ it may include
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha256(src).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,7 +1,8 @@
 """Transcription + evaluation harness (PyTorch port of train/eval.py).
 
   wav batch -> log-mel (eval, no dither) -> Conformer encode
-  -> greedy RNNT (the fused kernel, or frame-sync) or greedy CTC
+  -> greedy RNNT (the fused kernel, frame-sync or label-looping), greedy
+     CTC, or a beam (batched RNNT beam, host Graves beam, CTC prefix beam)
   -> host detokenization -> aggregate WER
 
 Metric names match the reference
@@ -10,8 +11,19 @@ Metric names match the reference
 ``greedy_impl``: ``"auto"`` picks the fused kernel on a CUDA model and
 frame-sync on the CPU; ``"fused"`` forces the kernel wrapper (on the CPU
 it runs its plain version); ``"framesync"`` that plain version, a
-batched Python-loop decoder, on any device. The kernel picks each row's own language head, so a
-mixed-language batch takes it too.
+batched Python-loop decoder, on any device; ``"labelsync"`` the
+label-looping decoder (``labelsync_window`` frames a round), plain
+PyTorch on any device. The kernel picks each row's own language head, so
+a mixed-language batch takes it too.
+
+``beam_impl`` (decoder ``"rnnt_beam"``): ``"auto"`` picks the fused beam
+kernel on a CUDA model and the batched beam on the CPU (``"xla"``, the
+JAX package's name for it); ``"fused"`` forces the kernel wrapper. Both
+take ``max_symbols`` as their expansion rounds per frame. The fused
+kernels take a single-layer LSTM prediction net and the relu joint (the
+port's only joint). ``"rnnt_beam_host"`` (the per-utterance Graves beam
+on the encoder's projections) and ``"ctc_beam"`` (prefix beam search on
+the CTC log-probs) run on the host, one real row at a time.
 """
 
 from __future__ import annotations
@@ -28,14 +40,16 @@ from ..audio.features import FrontendConfig, log_mel_spectrogram
 from ..audio.io import load_audio
 from ..data.manifest import ManifestEntry
 from ..data.pipeline import BucketSpec, _assemble
+from ..ops.beam_fused import rnnt_beam_search_fused, rnnt_beam_search_fused_reference
+from ..ops.beam_search import ctc_prefix_beam_search, rnnt_beam_search
 from ..ops.decode_fused import (
     rnnt_greedy_decode_fused,
     rnnt_greedy_decode_fused_reference,
 )
-from ..ops.decoding import ctc_greedy_decode
+from ..ops.decoding import ctc_greedy_decode, rnnt_greedy_decode_labelsync
 from .metrics import wer
 
-DECODERS = ("rnnt", "ctc")
+DECODERS = ("rnnt", "ctc", "rnnt_beam", "rnnt_beam_host", "ctc_beam")
 
 
 @dataclasses.dataclass
@@ -50,17 +64,27 @@ class Transcriber:
     bucket_spec: BucketSpec | None = None
     max_symbols: int = 10
     max_out: int = 256
-    greedy_impl: str = "auto"  # "auto" | "fused" | "framesync"
+    beam_size: int = 4
+    greedy_impl: str = "auto"  # "auto" | "fused" | "framesync" | "labelsync"
+    beam_impl: str = "auto"    # "auto" | "fused" | "xla"
+    labelsync_window: int = 32
 
     def __post_init__(self):
         cfg = self.model.cfg
         self.device = self.model.device
+        cuda = self.device.type == "cuda"
         if self.greedy_impl == "auto":
-            self.greedy_impl = "fused" if self.device.type == "cuda" else "framesync"
-        if self.greedy_impl not in ("fused", "framesync"):
+            self.greedy_impl = "fused" if cuda else "framesync"
+        if self.beam_impl == "auto":
+            self.beam_impl = "fused" if cuda else "xla"
+        if self.greedy_impl not in ("fused", "framesync", "labelsync"):
+            raise ValueError(f"greedy_impl={self.greedy_impl!r}")
+        if self.beam_impl not in ("fused", "xla"):
+            raise ValueError(f"beam_impl={self.beam_impl!r}")
+        if self.beam_impl == "fused" and cfg.pred_rnn_layers != 1:
             raise ValueError(
-                f"greedy_impl={self.greedy_impl!r}: labelsync and the beam "
-                "decoders arrive with later slices"
+                f"the fused beam takes a single-layer LSTM, the model has "
+                f"{cfg.pred_rnn_layers}: use beam_impl=\"xla\""
             )
         if self.frontend.n_mels != cfg.encoder.feat_in:
             raise ValueError("front-end mel bins must match encoder feat_in")
@@ -75,32 +99,56 @@ class Transcriber:
         return self.model.encode(mel, mel_lens)
 
     @torch.inference_mode()
-    def decode_batch(self, audio, audio_len, lang_ids, decoder: str):
-        """Device tensors of one batch -> (ids [B, N], lens [B])."""
+    def decode_batch(self, audio, audio_len, lang_ids, decoder: str, n_real: int | None = None):
+        """Device tensors of one batch -> the token ids of its first
+        ``n_real`` rows (every row by default), one list per row."""
         model = self.model
+        blank = model.cfg.blank_local
+        n_real = len(lang_ids) if n_real is None else n_real
         f, enc_lens = self._encode(audio, audio_len)
         self.counts[f"{decoder}_batches"] += 1
+        if decoder == "ctc_beam":
+            lp = model.ctc_logprobs(f, lang_ids).float().cpu().numpy()
+            n = enc_lens.cpu().tolist()
+            return [ctc_prefix_beam_search(lp[r], n[r], blank, beam_size=self.beam_size)
+                    for r in range(n_real)]
         if decoder == "ctc":
-            return ctc_greedy_decode(
-                model.ctc_logprobs(f, lang_ids), enc_lens, model.cfg.blank_local
-            )
-        greedy = (
-            rnnt_greedy_decode_fused if self.greedy_impl == "fused"
-            else rnnt_greedy_decode_fused_reference
-        )
-        return greedy(
-            model.joint_project_enc(f), enc_lens, lang_ids, model,
-            max_symbols=self.max_symbols, max_out=self.max_out,
-        )
+            ids, lens = ctc_greedy_decode(model.ctc_logprobs(f, lang_ids), enc_lens, blank)
+        else:
+            f_proj = model.joint_project_enc(f)
+            if decoder == "rnnt_beam_host":
+                n, langs = enc_lens.cpu().tolist(), lang_ids.cpu().tolist()
+                return [rnnt_beam_search(f_proj[r], n[r], langs[r], model.pred_step,
+                                         model.joint_step, blank=blank,
+                                         beam_size=self.beam_size,
+                                         max_expansions=self.max_symbols)
+                        for r in range(n_real)]
+            if decoder == "rnnt_beam":
+                beam = (rnnt_beam_search_fused if self.beam_impl == "fused"
+                        else rnnt_beam_search_fused_reference)
+                ids, lens, _ = beam(f_proj, enc_lens, lang_ids, model,
+                                    beam_size=self.beam_size,
+                                    max_expansions=self.max_symbols, max_out=self.max_out)
+            elif self.greedy_impl == "labelsync":
+                ids, lens = rnnt_greedy_decode_labelsync(
+                    f_proj, enc_lens, lang_ids, model.pred_step, model.joint_step, None,
+                    blank=blank, max_symbols=self.max_symbols, max_out=self.max_out,
+                    window=self.labelsync_window,
+                )
+            else:
+                greedy = (rnnt_greedy_decode_fused if self.greedy_impl == "fused"
+                          else rnnt_greedy_decode_fused_reference)
+                ids, lens = greedy(f_proj, enc_lens, lang_ids, model,
+                                   max_symbols=self.max_symbols, max_out=self.max_out)
+        ids, lens = ids.cpu().numpy(), lens.cpu().numpy()
+        return [ids[r, : lens[r]].tolist() for r in range(n_real)]
 
     def transcribe(
         self, entries: Sequence[ManifestEntry], decoder: str = "rnnt"
     ) -> list[str]:
         """Entries -> hypothesis strings (original entry order)."""
         if decoder not in DECODERS:
-            raise ValueError(
-                f"decoder={decoder!r}: the beam decoders arrive with a later slice"
-            )
+            raise ValueError(f"decoder={decoder!r}: one of {DECODERS}")
         spec = self.bucket_spec or BucketSpec()
         lang_index = {l: i for i, l in enumerate(self.languages)}
         by_bucket: dict[int, list[int]] = {}
@@ -119,17 +167,15 @@ class Transcriber:
                         [entries[j] for j in padded], n_real, bucket, spec,
                         self.tokenizer, lang_index, 0, load_audio, io_pool,
                     )
-                    ids, lens = self.decode_batch(
+                    rows = self.decode_batch(
                         torch.from_numpy(batch.audio).to(dev),
                         torch.from_numpy(batch.audio_len).to(dev),
                         torch.from_numpy(batch.lang_ids).to(dev),
-                        decoder,
+                        decoder, n_real,
                     )
-                    ids = ids.cpu().numpy()
-                    lens = lens.cpu().numpy()
                     for row in range(n_real):
                         hyps[chunk_idx[row]] = self.tokenizer.ids_to_text(
-                            ids[row, : lens[row]].tolist(), batch.langs[row]
+                            rows[row], batch.langs[row]
                         )
         return hyps
 
@@ -167,11 +213,11 @@ def run_eval(
     curr_lang_idx: int,
     lang: str,
 ) -> dict:
-    """Per-(split, lang) eval over both decoders — reference utils.py:151-174
-    ``run_eval``, identical metric keys."""
+    """Per-(split, lang) eval over both greedy decoders — reference
+    utils.py:151-174 ``run_eval``, identical metric keys."""
     perf = {}
     log_dict = {}
-    for mode in DECODERS:
+    for mode in ("rnnt", "ctc"):
         val = transcriber.compute_wer(clean_entries, mode)
         noisy = transcriber.compute_wer(noisy_entries, mode)
         perf[f"{mode}_wer"] = val

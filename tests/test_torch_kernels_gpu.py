@@ -17,7 +17,10 @@ entries, the NLL to rel 1e-5 and the slab gradients to 1e-5·max|grad|
 (both against the plain lattices on the card; the lattice values reach
 hundreds, where one f32 step is ~3e-5); the greedy decode token-exact in
 f32; a tiny training step on the card against the same step on the CPU
-(losses rel 1e-4, gradients 1e-3 of their scale).
+(losses rel 1e-4, gradients 1e-3 of their scale); the fused beam's ids
+and lens equal to its plain version's in f32 and scores within 1e-5 of
+|score|, except rows where the plain version's trace shows two competing
+candidates within 1e-5 of each other.
 """
 
 import pytest
@@ -447,3 +450,97 @@ def test_mas_importance_batch_on_the_card_matches_the_cpu(cuda):
         ref = omega["cpu"][n.replace("linear_k.bias", "linear_k.weight")
                           .replace("depthwise_conv.bias", "depthwise_conv.weight")]
         assert (omega["cuda"][n] - want).abs().max() <= 1e-3 * ref.abs().max(), n
+
+
+def _beam_model(cfg, dev, lang, f_proj, q=0.97):
+    """Seeded weights, heads scaled for margins, and the blank bias of each
+    language set so a fraction 1-q of the frames open with a token."""
+    model = init_weights_(HybridRNNTCTC(cfg, device=dev), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.joint.head_kernel.mul_(8.0)
+        B = f_proj.shape[0]
+        g0, _ = model.pred_step(torch.full((B,), model.cfg.blank_local, device=dev), None)
+        logits = torch.einsum("bth,bhv->btv", torch.relu(f_proj + g0[:, None]),
+                              model.joint.head_kernel[lang.long()])
+        margin = logits[..., :-1].amax(-1) - logits[..., -1]
+        model.joint.head_bias[:, -1] = torch.quantile(margin.flatten().float(), q)
+    return model
+
+
+def _beam_agrees(got, want, trace):
+    """ids and lens equal row by row and scores within 1e-5 of |score|; a
+    row that differs only where the plain version's trace shows two
+    competing candidates within 1e-5 of each other (the kernel sums in
+    another order than cuBLAS). Returns the number of such rows."""
+    (ids, n, sc), (ids_p, n_p, sc_p) = got, want
+    same = (ids == ids_p).all(dim=1) & (n == n_p)
+    gap = torch.stack(trace).amin(dim=0)
+    assert bool((gap[~same] <= 1e-5).all()), (same, gap)
+    err = (sc - sc_p).abs()[same] / sc_p.abs()[same].clamp(min=1.0)
+    assert err.numel() == 0 or float(err.max()) <= 1e-5
+    return int((~same).sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "width,T,beam,max_out,mixed",
+    [("tiny", 40, 4, 64, True), ("tiny", 40, 1, 64, False), ("tiny", 40, 3, 6, False),
+     ("flagship", 204, 4, 256, False), ("flagship", 204, 4, 256, True),
+     ("flagship", 120, 4, 12, False)],
+)
+def test_beam_kernel_matches_plain_f32(cuda, width, T, beam, max_out, mixed):
+    """The fused beam against the batched beam over the model's own steps
+    in f32, at a small and at the flagship width (pred/joint 640, 12
+    languages x 256 tokens + blank), with a zero-length row, unequal
+    lengths, mixed languages, beam 1 and a max_out that caps rows."""
+    from indic_cl_asr_torch.ops import beam_fused as bfm
+
+    cfg = (tiny_config(dtype=torch.float32) if width == "tiny"
+           else flagship_config(torch.float32, n_layers=1))
+    B, H = 16, cfg.joint_hidden
+    g = torch.Generator().manual_seed(T + beam)
+    f_proj = torch.randn((B, T, H), generator=g).to(cuda)
+    lens = torch.randint(1, T + 1, (B,), generator=g)
+    lens[1] = 0
+    lens = lens.to(cuda)
+    lang = (torch.arange(B) % cfg.n_langs if mixed else torch.full((B,), 1)).to(cuda)
+    model = _beam_model(cfg, cuda, lang, f_proj)
+    kw = dict(beam_size=beam, max_expansions=6, max_out=max_out)
+    n0 = bfm.rnnt_beam_search_fused.launches
+    with torch.inference_mode():
+        got = bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, **kw)
+        trace = []
+        want = bfm.rnnt_beam_search_fused_reference(f_proj, lens, lang, model, trace=trace, **kw)
+    torch.cuda.synchronize()
+    assert bfm.rnnt_beam_search_fused.launches == n0 + 1
+    assert int(want[1].sum()) > 0 and int(got[1][1]) == 0
+    if max_out < 64:
+        assert int((want[1] == max_out).sum()) > 0
+    assert _beam_agrees(got, want, trace) <= 2
+
+
+@pytest.mark.gpu
+def test_beam_kernel_rejects_what_it_does_not_take(cuda):
+    """CUDA tensors launch the kernel or raise, never the plain version."""
+    from indic_cl_asr_torch.ops import beam_fused as bfm
+
+    model = HybridRNNTCTC(flagship_config(torch.bfloat16, n_layers=1), device=cuda)
+    f_proj = torch.zeros((2, 5, 640), device=cuda, dtype=torch.bfloat16)
+    lens = torch.full((2,), 5, device=cuda)
+    lang = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    n0 = bfm.rnnt_beam_search_fused.launches
+    # eight hypotheses at flagship widths overflow one block's shared memory:
+    # the card refuses the launch and the wrapper raises its error
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, beam_size=8)
+    with pytest.raises(ValueError):
+        bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, beam_size=9)
+    with pytest.raises(ValueError):  # two LSTM layers
+        bfm.rnnt_beam_search_fused(f_proj.float()[..., :32], lens, lang,
+                                   HybridRNNTCTC(tiny_config(pred_rnn_layers=2), device=cuda))
+    assert bfm.rnnt_beam_search_fused.launches == n0
+    bfm.reset_counts()
+    bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, beam_size=2)
+    assert bfm.rnnt_beam_search_fused.launches == 1
+    work = bfm.work_counts()
+    assert work["rounds"] > 0 and work["joint_evals"] >= work["rounds"]

@@ -1,8 +1,9 @@
 """Port parity end to end: the PyTorch ``Transcriber`` (log-mel -> encoder
--> greedy RNNT or CTC -> detokenize) against the JAX package's
-``Transcriber`` on a few synthetic WAVs, with the same weights, at
-``tiny_config()`` in f32 on the CPU: identical hypotheses for both
-decoders, and ``run_eval``'s metric keys."""
+-> greedy RNNT (frame-sync or label-looping), greedy CTC or a beam ->
+detokenize) against the JAX package's ``Transcriber`` on a few synthetic
+WAVs in two languages, with the same weights, at ``tiny_config()`` in f32
+on the CPU: identical hypotheses for every decoder, and ``run_eval``'s
+metric keys."""
 
 import dataclasses
 
@@ -26,6 +27,21 @@ from indic_cl_asr_torch.train.eval import Transcriber, run_eval
 from .synth import make_texts, make_wav_dataset
 
 LANGS = ["hindi", "tamil"]
+
+
+class _JitSteps:
+    """The flax module with ``pred_step`` and ``joint_step`` jitted: the JAX
+    Transcriber's host beam calls them from Python, eagerly otherwise."""
+
+    def __init__(self, model):
+        self.model = model
+        self.steps = {m: jax.jit(lambda v, *a, m=m: model.apply(v, *a, method=m))
+                      for m in ("pred_step", "joint_step")}
+
+    def apply(self, variables, *args, method=None):
+        if method in self.steps:
+            return self.steps[method](variables, *args)
+        return self.model.apply(variables, *args, method=method)
 
 
 @pytest.fixture(scope="module")
@@ -83,6 +99,27 @@ def test_mixed_language_batch_and_fused_plain_path(setup):
     assert fused.transcribe(single, "rnnt") == jt.transcribe(jv, single, "rnnt")
 
 
+@pytest.mark.parametrize("decoder", ["rnnt_beam", "rnnt_beam_host", "ctc_beam", "labelsync"])
+def test_beam_and_labelsync_hypotheses_match_jax(setup, decoder):
+    """The beams on the CPU (``beam_impl`` "auto" is the batched beam there,
+    the JAX package's "xla") and label-looping greedy: the JAX
+    Transcriber's hypotheses, in a batch that mixes the two languages."""
+    data, jt, jv, pt = setup
+    assert pt.beam_impl == "xla"
+    entries = data["hindi"][:3] + data["tamil"][:3]
+    if decoder == "rnnt_beam_host":
+        entries = data["hindi"][:2] + data["tamil"][:2]
+        jt = dataclasses.replace(jt, model=_JitSteps(jt.model))
+    if decoder == "labelsync":
+        jt = dataclasses.replace(jt, greedy_impl="labelsync")
+        pt = dataclasses.replace(pt, greedy_impl="labelsync", labelsync_window=4)
+        jt.labelsync_window = 4
+        decoder = "rnnt"
+    hyps = pt.transcribe(entries, decoder)
+    assert any(hyps)
+    assert hyps == jt.transcribe(jv, entries, decoder)
+
+
 def test_run_eval_metric_keys_and_files(setup):
     data, _, _, pt = setup
 
@@ -103,4 +140,8 @@ def test_run_eval_metric_keys_and_files(setup):
     paths = [e.audio_filepath for e in data["tamil"][:3]]
     assert pt.transcribe_files(paths, "tamil") == pt.transcribe(data["tamil"][:3])
     with pytest.raises(ValueError):
-        pt.transcribe(data["tamil"][:1], "rnnt_beam")
+        pt.transcribe(data["tamil"][:1], "rnnt_beam_fused")
+    with pytest.raises(ValueError, match='beam_impl="xla"'):
+        Transcriber(model=HybridRNNTCTC(tiny_config(pred_rnn_layers=2), device="cpu"),
+                    tokenizer=pt.tokenizer, languages=LANGS,
+                    frontend=FrontendConfig(n_mels=32), beam_impl="fused")
