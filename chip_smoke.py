@@ -14,7 +14,8 @@ Phases, each of which fails the script when it fails:
 3. Kernels against their plain PyTorch versions on the card:
    flash rel-pos attention at B16 T204 E512 H8 in f32 (max abs err
    <= 1e-4) and bf16 (<= 2e-2), plus T in {1, 37, 512}, a row with
-   lens=0 and a (16, 0) band; the fused greedy decode at flagship widths
+   lens=0 and a (16, 0) band; the fused greedy decode (a cluster of
+   blocks per row) at flagship widths
    (B16, T 204 and 300 in one language, and T 204 with the rows spread
    over the 12 languages; four draws each), token-exact in f32, and in
    bf16 at least 90% of the plain version's tokens reproduced before
@@ -46,7 +47,8 @@ Phases, each of which fails the script when it fails:
    bf16, flash attention) with seeded random weights, transcribed with the
    RNNT and CTC decoders through ``Transcriber``. The launch counts are
    reset just before and read just after this run: flash launches must be
-   17 x the encoder batches and decode launches the RNNT batches. Then
+   17 x the encoder batches and decode launches the RNNT batches; three
+   more passes of each decoder, in turns, give the spread of utts/s. Then
    the beam path, ``transcribe(entries, "rnnt_beam")`` (B16, beam 4,
    max_expansions 10, max_out 256) with its own counts reset and read:
    beam launches equal to the rnnt_beam batches, flash 17 x the encoder
@@ -57,7 +59,9 @@ Phases, each of which fails the script when it fails:
    hypotheses, and label-looping greedy identical to both greedy paths.
 5. Timing at the serving path's shapes (CUDA events): each kernel (the
    beam at the long bucket's batch), its plain version, and its bound (bytes over 3.35 TB/s or operations over
-   the 989 TFLOP/s bf16 peak, whichever is larger).
+   the 989 TFLOP/s bf16 peak, whichever is larger). The greedy decode's
+   line also gives its cluster size, its block's shared memory, ptxas's
+   registers and spills, and the longest row's rounds and LSTM steps.
 6. The training slice: the flagship model (bf16, flash attention, layers
    0-11 frozen, the flagship dropouts, SpecAugment on) trained with
    ``make_train_step`` and AdamW (lr 1e-4, wd 0.01) on ``BatchPipeline``
@@ -97,7 +101,9 @@ Phases, each of which fails the script when it fails:
 Prints the card's name and power limit (``nvidia-smi``) on a line of its
 own first, then the full record as one ``record {...}`` line, the
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
-"device": {...}}``. Exits non-zero without a CUDA card.
+"device": {...}}``; before them, the end-to-end numbers the greedy decode
+moves (RNNT serving utts/s and idle share, CL wall time per method).
+Exits non-zero without a CUDA card.
 """
 
 from __future__ import annotations
@@ -578,6 +584,20 @@ def run_slice(dev, rec):
         f"({rec['slice_bf16']['rnnt_ms_per_batch']:.2f} ms/batch), ctc "
         f"{rec['slice_bf16']['ctc_utts_per_s']:.2f} utts/s "
         f"({rec['slice_bf16']['ctc_ms_per_batch']:.2f} ms/batch)")
+    # one pass is host-bound and its wall time spreads from run to run:
+    # three more passes of each decoder, in turns, outside the counted run
+    reps = {"rnnt": [], "ctc": []}
+    for _ in range(3):
+        for d in reps:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tr.transcribe(entries, d)
+            torch.cuda.synchronize()
+            reps[d].append(len(entries) / (time.perf_counter() - t))
+    rec["slice_bf16"]["utts_per_s_more_passes"] = reps
+    log(f"  bf16 slice, three more passes in turns: rnnt "
+        f"{[round(v, 2) for v in reps['rnnt']]} utts/s, ctc "
+        f"{[round(v, 2) for v in reps['ctc']]} utts/s")
     rec["profile_rnnt"] = profile_pass(tr, entries, (t1 - t0) * 1e3)
     enc_inputs = capture_main_path_inputs(model, tr.frontend, long_batch)
     launches = {**launches, **run_beam_path(tr, entries, rec)}
@@ -754,7 +774,9 @@ def time_kernels(model_inputs, launches, decode_work_main, rec):
         rows = int(((ids == ids_p).all(dim=1) & (n == n_p)).sum())
         dfm.reset_counts()
         ms = cuda_ms(lambda: dfm.rnnt_greedy_decode_fused(*dargs), iters=5, warmup=0)
-        work_each = {k_: v_ // 5 for k_, v_ in dfm.work_counts().items()}
+        # sums over the 5 launches; the longest row's chain is the same in each
+        work_each = {k_: v_ // 5 if k_ in ("joint_evals", "lstm_steps") else v_
+                     for k_, v_ in dfm.work_counts().items()}
         plain = cuda_ms(lambda: dfm.rnnt_greedy_decode_fused_reference(*dargs),
                         iters=2, warmup=1)
         # the same batch with its rows spread over the 12 languages' heads
@@ -787,14 +809,39 @@ def time_kernels(model_inputs, launches, decode_work_main, rec):
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,
     })
+    layout = {"cluster": dfm.CLUSTER, "threads": dfm.THREADS,
+              "shared_bytes_per_block": dfm.shared_memory_bytes(model_inputs["model"]),
+              "ptxas": ptxas_lines("decode_fused", "rnnt_greedy_decode_kernel")}
     log(f"  decode B{B} T{T} bf16: {ms:.4f} ms, plain {plain:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}; {nbytes} B, {flops} flop), work {work_each}, "
-        f"tokens {n.tolist()}, bf16 rows identical to plain {rows}/{B}")
+        f"tokens {n.tolist()}, bf16 rows identical to plain {rows}/{B}; a cluster of "
+        f"{layout['cluster']} blocks of {layout['threads']} threads a row, "
+        f"{layout['shared_bytes_per_block']} B of shared memory a block, ptxas "
+        f"{layout['ptxas']}; the longest row {work_each['row_joint_evals_max']} rounds "
+        f"(joint evaluations), {work_each['row_lstm_steps_max']} LSTM steps")
     rec["decode_bf16_main_rows_identical"] = rows
     rec["decode_work_per_launch"] = work_each
     rec["decode_work_main_path"] = decode_work_main
+    rec["decode_layout"] = layout
     lines.append(time_beam(model_inputs, launches, rec))
     return lines
+
+
+def ptxas_lines(source, kernel):
+    """ptxas's resource line (registers, spills, static shared memory) of
+    each instantiation of ``kernel`` in the build log of ``source``, by
+    compute type."""
+    from indic_cl_asr_torch.ops import _build
+
+    out, func, spill = {}, "", ""
+    for line in _build.BUILD_LOG.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            func, spill = line, ""
+        elif "spill" in line:
+            spill = "; " + line.strip()
+        elif "registers" in line and kernel in func:
+            out["bf16" if "bfloat16" in func else "f32"] = line.split(":", 1)[-1].strip() + spill
+    return out
 
 
 def time_beam(model_inputs, launches, rec):
@@ -1805,6 +1852,18 @@ def main() -> int:
              "rnnt_greedy_decode_fused", "rnnt_beam_search_fused"]
     kernels.sort(key=lambda k: order.index(k["name"]))
     rec["kernels"] = kernels
+    # the end-to-end numbers the greedy decode moves: serving's RNNT pass
+    # (phase 4) and the CL sequences, whose evals decode every set (phase 8)
+    more = rec["slice_bf16"]["utts_per_s_more_passes"]["rnnt"]
+    rec["end_to_end"] = {
+        "rnnt_serving_utts_per_s": rec["slice_bf16"]["rnnt_utts_per_s"],
+        "rnnt_serving_utts_per_s_median_of_more": sorted(more)[len(more) // 2],
+        "rnnt_serving_idle_share": rec["profile_rnnt"]["idle_share"],
+        "cl_wall_s": {m: rec["cl"][m]["wall_s"] for m in CL_METHODS}}
+    e2e = rec["end_to_end"]
+    log(f"end to end: RNNT serving {e2e['rnnt_serving_utts_per_s']:.2f} utts/s counted pass, "
+        f"{e2e['rnnt_serving_utts_per_s_median_of_more']:.2f} median of three more (idle share "
+        f"{e2e['rnnt_serving_idle_share']:.3f}); CL sequence wall s {e2e['cl_wall_s']}")
     rec["total_s"] = time.perf_counter() - t_start
     log(f"total {rec['total_s']:.1f} s")
     print("record " + json.dumps(rec))

@@ -8,27 +8,42 @@ projection; all-blank rounds skip the LSTM) in one launch, with the same
 contract: ``(ids [B, max_out] int32 blank-padded, lens [B] int32)``.
 
 Greedy rows are independent, so the kernel (``csrc/decode_fused.cu``)
-gives each batch row its own block, which walks its own frames and its
-own emission loop with the head of its own language: a row never waits
-for the others, and a batch may mix languages (the TPU kernel, one loop
-over the whole batch, holds a single head). The embedding row is read
-directly (no one-hot matmul). Every dot accumulates in f32 and is
-rounded to the compute dtype where the model's ``pred_step`` /
-``joint_step`` round, so f32 decoding is token-exact against the plain
-version: ``ops/decoding.py:rnnt_greedy_decode`` over those steps.
+gives each batch row its own thread-block cluster of ``CLUSTER`` blocks,
+which walks its own frames and its own emission loop with the head of its
+own language: a row never waits for the others, and a batch may mix
+languages (the TPU kernel, one loop over the whole batch, holds a single
+head). ``cluster_split`` gives each block of a cluster its slice of the
+weights in whole 16-byte groups: a share of the hidden units with all
+four gate columns of each (the cell update stays local), of the
+projection's columns and of the head's columns (uneven shares; the
+zero-padded head columns are never scored). After the gates, the
+projection and the joint, each block writes what the others need (its
+units' h, its columns of g, its best logit and first index) into every
+peer's shared memory and the cluster meets at one barrier; every block
+then reduces the candidates in rank order, so all take the same branch.
+The embedding row is read directly (no one-hot matmul). Every dot
+accumulates in f32 and is rounded to the compute dtype where the model's
+``pred_step`` / ``joint_step`` round, so f32 decoding is token-exact
+against the plain version: ``ops/decoding.py:rnnt_greedy_decode`` over
+those steps.
 
 What bounds it on the card: each LSTM step reads W_ih, W_hh and W_p
-(about 7.3 MB in bf16 at flagship widths) from L2 into one SM, and steps
-of a row run one after another, so the time is per-row latency (the L2
-rate one SM can draw), far above the bytes bound of the whole launch.
-Spreading a row over a cluster of blocks is the next step.
+(about 7.3 MB in bf16 at flagship widths) from L2, now a 1/CLUSTER slice
+into each SM of the row's cluster, and steps of a row run one after
+another; so the launch lasts as long as its longest row's chain, each
+step set by the L2 rate of the cluster's SMs (shared with the other
+rows, which step at the same time) and two cluster barriers, each joint
+by one cluster barrier, the block barriers around its head product and
+the latency of its short head slice. Both stay far above the bytes bound
+of the whole launch.
 
 The joint activation is relu and the prediction net has one LSTM layer,
 as in the flagship. The TPU kernel's VMEM budget (``decode_vmem_bytes`` /
 ``fits_fused_decode``) has no counterpart here: f_proj and the weights
 stay in device memory and L2, and only the decode state lives in shared
-memory. The card's own limit is the shared memory one block may use; the
-launch asks for it with ``cudaFuncSetAttribute``, which fails over the
+memory. The card's own limits are the shared memory one block may use
+and the cluster that must fit one GPC; the launch asks for them
+(``cudaFuncSetAttribute``, ``cudaLaunchKernelEx``), which fail over the
 limit, and the wrapper raises on that error.
 """
 
@@ -44,10 +59,27 @@ from .decoding import rnnt_greedy_decode
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 640  # splits every flagship mat-vec evenly (csrc/decode_fused.cu)
+CLUSTER = 8    # blocks per row: the portable maximum of a thread-block cluster
 
 
 def _pad8(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def cluster_split(Hp: int, Hj: int, V1p: int, vec: int, C: int) -> dict:
+    """Each block's columns in a row's cluster of ``C`` blocks, as bounds
+    [C + 1] in whole ``vec``-wide (16-byte) groups, the later shares the
+    larger where a count does not divide: block c owns hidden units
+    ``unit[c]:unit[c+1]`` (all four gate columns of each, at ``q*Hp + u``
+    for gate q), projection columns ``proj[c]:proj[c+1]`` and head columns
+    ``head[c]:head[c+1]`` of the V1p padded ones (the kernel scores only
+    those below V1)."""
+
+    def bounds(n):
+        groups = n // vec
+        return [(c * groups // C) * vec for c in range(C + 1)]
+
+    return {"unit": bounds(Hp), "proj": bounds(Hj), "head": bounds(V1p)}
 
 
 def _decode_params(model) -> list:
@@ -108,19 +140,21 @@ def rnnt_greedy_decode_fused_reference(
 
 
 # device-side counters of the work the kernel ran: [joint evaluations,
-# LSTM steps], accumulated across launches (read with work_counts())
+# LSTM steps] summed over rows and launches, then the most of each that
+# one row ran (read with work_counts())
 _work: dict[torch.device, torch.Tensor] = {}
 
 
 def work_counts() -> dict[str, int]:
     """Joint evaluations and LSTM steps run by every launch since the last
-    reset (synchronises with the card)."""
-    tot = [0, 0]
+    reset, and the most of each that one row ran (its rounds and steps: the
+    chain a launch waits for). Synchronises with the card."""
+    tot = [0, 0, 0, 0]
     for t in _work.values():
-        vals = t.tolist()
-        tot[0] += int(vals[0])
-        tot[1] += int(vals[1])
-    return {"joint_evals": tot[0], "lstm_steps": tot[1]}
+        vals = [int(v) for v in t.tolist()]
+        tot = [tot[0] + vals[0], tot[1] + vals[1], max(tot[2], vals[2]), max(tot[3], vals[3])]
+    return {"joint_evals": tot[0], "lstm_steps": tot[1], "row_joint_evals_max": tot[2],
+            "row_lstm_steps_max": tot[3]}
 
 
 def reset_counts() -> None:
@@ -174,7 +208,8 @@ def rnnt_greedy_decode_fused(
         # a normal tensor even under inference mode, so reset_counts() may
         # zero it anywhere
         with torch.inference_mode(False):
-            work = _work[dev] = torch.zeros(2, dtype=torch.int64, device=dev)
+            work = _work[dev] = torch.zeros(4, dtype=torch.int64, device=dev)
+    V1p = w["head"].shape[-1]
     lib = _build.load("decode_fused")
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _build.ptr
@@ -182,8 +217,9 @@ def rnnt_greedy_decode_fused(
         p(f), p(lens_i), p(lang_i), p(w["table"]), p(w["w_ih"]), p(w["w_hh"]),
         p(w["bias"]), p(w["wp"]), p(w["bp"]), p(w["head"]), p(w["head_b"]),
         p(ids), p(olen), p(work),
-        B, T, Hj, Hp, V1, w["head"].shape[-1], L, V1 - 1, max_symbols,
-        max_out, _DTYPES[dt], THREADS, ctypes.c_void_p(stream),
+        B, T, Hj, Hp, V1, V1p, L, V1 - 1, max_symbols,
+        max_out, _DTYPES[dt], THREADS, CLUSTER, _bounds(Hp, Hj, V1p, vec),
+        ctypes.c_void_p(stream),
     )
     _build.check(lib, err, "rnnt_greedy_decode_fused")
     rnnt_greedy_decode_fused.launches += 1
@@ -193,10 +229,30 @@ def rnnt_greedy_decode_fused(
 rnnt_greedy_decode_fused.launches = 0
 
 
+def _bounds(Hp: int, Hj: int, V1p: int, vec: int):
+    """cluster_split as the C array [3][CLUSTER + 1] the launch takes."""
+    split = cluster_split(Hp, Hj, V1p, vec, CLUSTER)
+    return (ctypes.c_int * (3 * (CLUSTER + 1)))(*split["unit"], *split["proj"], *split["head"])
+
+
+def shared_memory_bytes(model) -> int:
+    """Dynamic shared memory one block of the kernel's cluster asks for
+    with this model's widths (builds the library; needs no card)."""
+    w = extract_decode_weights(model)
+    dt = w["table"].dtype
+    Hp, Hj, V1p = w["table"].shape[1], w["wp"].shape[1], w["head"].shape[-1]
+    vec = 16 // (torch.finfo(dt).bits // 8)
+    return int(_build.load("decode_fused").rnnt_greedy_decode_smem_bytes(
+        Hj, Hp, V1p, _DTYPES[dt], THREADS, CLUSTER, _bounds(Hp, Hj, V1p, vec)))
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.rnnt_greedy_decode_fused.argtypes = [vp] * 14 + [i] * 12 + [vp]
+    lib.rnnt_greedy_decode_fused.argtypes = (
+        [vp] * 14 + [i] * 13 + [ctypes.POINTER(i), vp])
     lib.rnnt_greedy_decode_fused.restype = i
+    lib.rnnt_greedy_decode_smem_bytes.argtypes = [i] * 6 + [ctypes.POINTER(i)]
+    lib.rnnt_greedy_decode_smem_bytes.restype = ctypes.c_longlong
 
 
 _build.BINDERS["decode_fused"] = _bind

@@ -8,20 +8,23 @@
 Metric names match the reference
 (``{val|test}/perf_{lang}_{rnnt|ctc}_{wer|noisy_wer|avg_wer}``).
 
-``greedy_impl``: ``"auto"`` picks the fused kernel on a CUDA model and
-frame-sync on the CPU; ``"fused"`` forces the kernel wrapper (on the CPU
-it runs its plain version); ``"framesync"`` that plain version, a
-batched Python-loop decoder, on any device; ``"labelsync"`` the
-label-looping decoder (``labelsync_window`` frames a round), plain
-PyTorch on any device. The kernel picks each row's own language head, so
-a mixed-language batch takes it too.
+``greedy_impl``: ``"auto"`` picks the fused kernel on a CUDA model with a
+single-layer LSTM, label-looping on a CUDA model with a deeper
+prediction net, and frame-sync on the CPU (``resolve_decoders``);
+``"fused"`` forces the kernel wrapper (on the CPU it runs its plain
+version); ``"framesync"`` that plain version, a batched Python-loop
+decoder, on any device; ``"labelsync"`` the label-looping decoder
+(``labelsync_window`` frames a round), plain PyTorch on any device. The
+kernel picks each row's own language head, so a mixed-language batch
+takes it too.
 
 ``beam_impl`` (decoder ``"rnnt_beam"``): ``"auto"`` picks the fused beam
-kernel on a CUDA model and the batched beam on the CPU (``"xla"``, the
-JAX package's name for it); ``"fused"`` forces the kernel wrapper. Both
-take ``max_symbols`` as their expansion rounds per frame. The fused
-kernels take a single-layer LSTM prediction net and the relu joint (the
-port's only joint). ``"rnnt_beam_host"`` (the per-utterance Graves beam
+kernel on a CUDA model with a single-layer LSTM and the batched beam
+otherwise (``"xla"``, the JAX package's name for it); ``"fused"`` forces
+the kernel wrapper. Both take ``max_symbols`` as their expansion rounds
+per frame. The fused kernels take a single-layer LSTM prediction net and
+the relu joint (the port's only joint): an explicit ``"fused"`` on a
+deeper prediction net raises. ``"rnnt_beam_host"`` (the per-utterance Graves beam
 on the encoder's projections) and ``"ctc_beam"`` (prefix beam search on
 the CTC log-probs) run on the host, one real row at a time.
 """
@@ -52,6 +55,21 @@ from .metrics import wer
 DECODERS = ("rnnt", "ctc", "rnnt_beam", "rnnt_beam_host", "ctc_beam")
 
 
+def resolve_decoders(greedy_impl: str, beam_impl: str, device: torch.device,
+                     pred_rnn_layers: int) -> tuple[str, str]:
+    """``"auto"`` greedy and beam choices from the device and the model's
+    config, as the JAX package makes them: the fused kernels on a CUDA
+    model with a single-layer LSTM; label-looping greedy and the batched
+    ("xla") beam on a CUDA model with a deeper prediction net; frame-sync
+    greedy and the batched beam on the CPU. Other values pass through."""
+    fused = device.type == "cuda" and pred_rnn_layers == 1
+    if greedy_impl == "auto":
+        greedy_impl = ("fused" if fused else "labelsync") if device.type == "cuda" else "framesync"
+    if beam_impl == "auto":
+        beam_impl = "fused" if fused else "xla"
+    return greedy_impl, beam_impl
+
+
 @dataclasses.dataclass
 class Transcriber:
     """Batched transcription with a HybridRNNTCTC on its own device."""
@@ -72,20 +90,20 @@ class Transcriber:
     def __post_init__(self):
         cfg = self.model.cfg
         self.device = self.model.device
-        cuda = self.device.type == "cuda"
-        if self.greedy_impl == "auto":
-            self.greedy_impl = "fused" if cuda else "framesync"
-        if self.beam_impl == "auto":
-            self.beam_impl = "fused" if cuda else "xla"
+        self.greedy_impl, self.beam_impl = resolve_decoders(
+            self.greedy_impl, self.beam_impl, self.device, cfg.pred_rnn_layers
+        )
         if self.greedy_impl not in ("fused", "framesync", "labelsync"):
             raise ValueError(f"greedy_impl={self.greedy_impl!r}")
         if self.beam_impl not in ("fused", "xla"):
             raise ValueError(f"beam_impl={self.beam_impl!r}")
-        if self.beam_impl == "fused" and cfg.pred_rnn_layers != 1:
-            raise ValueError(
-                f"the fused beam takes a single-layer LSTM, the model has "
-                f"{cfg.pred_rnn_layers}: use beam_impl=\"xla\""
-            )
+        for what, impl, other in (("greedy", self.greedy_impl, "labelsync"),
+                                  ("beam", self.beam_impl, "xla")):
+            if impl == "fused" and cfg.pred_rnn_layers != 1:
+                raise ValueError(
+                    f"the fused {what} takes a single-layer LSTM, the model has "
+                    f"{cfg.pred_rnn_layers}: use {what}_impl=\"{other}\""
+                )
         if self.frontend.n_mels != cfg.encoder.feat_in:
             raise ValueError("front-end mel bins must match encoder feat_in")
         # batches encoded, and batches run per decoder

@@ -25,6 +25,8 @@ from indic_cl_asr_tpu.ops.decode_fused_pallas import (
 from indic_cl_asr_tpu.ops.decoding import ctc_greedy_decode as jax_ctc
 from indic_cl_asr_tpu.ops.decoding import rnnt_greedy_decode as jax_greedy
 from indic_cl_asr_torch.ops.decode_fused import (
+    CLUSTER,
+    cluster_split,
     extract_decode_weights,
     rnnt_greedy_decode_fused,
     work,
@@ -177,3 +179,47 @@ def test_work_accounting():
     heads = 2 * (8 * 5 * 2 + 5 * 4)
     assert nbytes == (2 * 3 * 8 + weights) * 2 + heads + 2 * 4 * 2 + 2 * 4 * 2
     assert flops == 2 * 4 * 8 * 5 + 2 * 2 * (2 * 8 * 32 + 8 * 8)
+
+
+@pytest.mark.parametrize("Hp,Hj,V1,vec,C", [
+    (640, 640, 257, 8, CLUSTER),   # flagship bf16: 33 head groups over 8 blocks
+    (640, 640, 257, 4, CLUSTER),   # flagship f32
+    (32, 32, 17, 8, CLUSTER),      # tiny bf16: fewer groups than blocks
+    (32, 32, 17, 4, CLUSTER),
+    (640, 640, 257, 8, 16),
+    (640, 640, 257, 8, 2),
+    (48, 24, 9, 8, 3),
+])
+def test_cluster_split_owns_every_column_once(Hp, Hj, V1, vec, C):
+    """The kernel's split of a row's work over its cluster: every gate,
+    projection and head column belongs to exactly one block, in whole
+    16-byte groups; a unit's four gate columns share a block; the padded
+    head columns lie in the last shares, past every scored column."""
+    V1p = -(-V1 // 8) * 8
+    sp = cluster_split(Hp, Hj, V1p, vec, C)
+    for name, n in (("unit", Hp), ("proj", Hj), ("head", V1p)):
+        b = sp[name]
+        assert len(b) == C + 1 and b[0] == 0 and b[-1] == n
+        assert all(x % vec == 0 for x in b) and all(x <= y for x, y in zip(b, b[1:]))
+        # shares differ by at most one group
+        sizes = [y - x for x, y in zip(b, b[1:])]
+        assert max(sizes) - min(sizes) <= vec
+
+    def owner(bounds, col):
+        return [c for c in range(C) if bounds[c] <= col < bounds[c + 1]]
+
+    gates = {}
+    for c in range(C):
+        for q in range(4):
+            for u in range(sp["unit"][c], sp["unit"][c + 1]):
+                assert q * Hp + u not in gates
+                gates[q * Hp + u] = c
+    assert sorted(gates) == list(range(4 * Hp))
+    for u in range(Hp):
+        assert len({gates[q * Hp + u] for q in range(4)}) == 1
+    assert all(len(owner(sp["proj"], j)) == 1 for j in range(Hj))
+    # the kernel scores block c's head columns [head[c], min(head[c+1], V1))
+    scored = [v for c in range(C) for v in range(sp["head"][c], min(sp["head"][c + 1], V1))]
+    assert scored == list(range(V1))
+    padded = {owner(sp["head"], v)[0] for v in range(V1, V1p)}
+    assert all(c >= owner(sp["head"], V1 - 1)[0] for c in padded)

@@ -92,26 +92,33 @@ def test_flash_kernel_matches_plain(cuda, dtype, atol, B, T, H, D, band):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "T,max_symbols,max_out,mixed",
-    [(204, 10, 256, False), (300, 10, 256, False), (60, 2, 8, False),
-     (204, 10, 256, True)],
+    "B,T,max_symbols,max_out,mixed",
+    [(16, 204, 10, 256, False), (16, 300, 10, 256, False), (16, 60, 2, 8, False),
+     (16, 204, 10, 256, True), (1, 204, 10, 256, False), (40, 120, 10, 256, True)],
 )
-def test_decode_kernel_token_exact_f32(cuda, T, max_symbols, max_out, mixed):
+def test_decode_kernel_token_exact_f32(cuda, B, T, max_symbols, max_out, mixed):
     """Flagship widths (pred/joint 640, 12 languages x 256 tokens + blank)
-    in f32; the mixed case gives each row another language's head."""
+    in f32; the mixed cases give each row another language's head; a batch
+    of one row (one cluster) and of 40 rows (more clusters than one wave
+    of the card holds). The work counters count each row once, not once
+    per block of its cluster: one LSTM step per emitted token plus the
+    priming step of each row with frames."""
+    from indic_cl_asr_torch.ops import decode_fused as dfm
+
     model = HybridRNNTCTC(flagship_config(torch.float32, n_layers=1), device=cuda)
     init_weights_(model, torch.Generator().manual_seed(0))
-    g = torch.Generator().manual_seed(T)
-    f_proj = torch.randn((16, T, 640), generator=g).to(cuda)
-    lens = torch.randint(1, T + 1, (16,), generator=g)
-    lens[1] = 0
+    g = torch.Generator().manual_seed(T + B)
+    f_proj = torch.randn((B, T, 640), generator=g).to(cuda)
+    lens = torch.randint(1, T + 1, (B,), generator=g)
+    if B > 1:
+        lens[1] = 0
     lens = lens.to(cuda)
-    lang = (torch.arange(16) % 12 if mixed else torch.full((16,), 3)).to(cuda)
+    lang = (torch.arange(B) % 12 if mixed else torch.full((B,), 3)).to(cuda)
     # heads scaled for margins, and a blank bias at which about a tenth of
     # the frames open with a token, so rows mix blanks and emissions
     with torch.no_grad():
         model.joint.head_kernel.mul_(8.0)
-        g0, _ = model.pred_step(torch.full((16,), 256, device=cuda), None)
+        g0, _ = model.pred_step(torch.full((B,), 256, device=cuda), None)
         logits = torch.einsum(
             "bth,bhv->btv", torch.relu(f_proj + g0[:, None]),
             model.joint.head_kernel[lang],
@@ -119,20 +126,31 @@ def test_decode_kernel_token_exact_f32(cuda, T, max_symbols, max_out, mixed):
         margin = logits[..., :-1].amax(-1) - logits[..., -1]
         model.joint.head_bias[:, -1] = torch.quantile(margin.flatten(), 0.9)
     kw = dict(max_symbols=max_symbols, max_out=max_out)
+    dfm.reset_counts()
     ids, n = rnnt_greedy_decode_fused(f_proj, lens, lang, model, **kw)
+    work = dfm.work_counts()
     ids_p, n_p = rnnt_greedy_decode_fused_reference(f_proj, lens, lang, model, **kw)
     torch.cuda.synchronize()
-    assert int(n_p.sum()) > 0 and int(n[1]) == 0
+    assert rnnt_greedy_decode_fused.launches == 1
+    assert int(n_p.sum()) > 0 and (B == 1 or int(n[1]) == 0)
     assert torch.equal(n, n_p)
     assert torch.equal(ids, ids_p)
+    assert work["lstm_steps"] == int(n.sum()) + int((lens > 0).sum())
+    assert work["row_lstm_steps_max"] == int(n.max()) + 1
+    assert work["joint_evals"] >= int(lens.sum()) and work["row_joint_evals_max"] >= int(lens.max())
 
 
 @pytest.mark.gpu
 def test_decode_kernel_rejects_what_it_does_not_take(cuda):
+    """CUDA tensors launch the kernel or raise, never the plain version."""
+    from indic_cl_asr_torch.ops import decode_fused as dfm
+
     f_proj = torch.zeros((2, 5, 40), device=cuda, dtype=torch.bfloat16)
     lens = torch.full((2,), 5, device=cuda)
     lang = torch.zeros((2,), dtype=torch.int32, device=cuda)
-    # bf16 mat-vecs load 8 lanes at a time: a pred width of 36 does not fit
+    dfm.reset_counts()
+    # bf16 mat-vecs load 8 lanes at a time, and the cluster splits the
+    # units in such groups: a pred width of 36 does not fit
     model = HybridRNNTCTC(
         tiny_config(pred_hidden=36, joint_hidden=40, dtype=torch.bfloat16), device=cuda
     )
@@ -142,12 +160,21 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda):
     model = HybridRNNTCTC(tiny_config(pred_rnn_layers=2), device=cuda)
     with pytest.raises(ValueError):
         rnnt_greedy_decode_fused(f_proj.float()[..., :32], lens, lang, model)
-    # a joint width whose partial sums overflow one block's shared memory:
-    # the card refuses the launch and the wrapper raises its error
-    model = HybridRNNTCTC(tiny_config(joint_hidden=65536), device=cuda)
-    f_big = torch.zeros((2, 5, 65536), device=cuda)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        rnnt_greedy_decode_fused(f_big, lens, lang, model)
+    # one block's shared memory holds the full g and joint input (two f32
+    # vectors of the joint width) beside its own partial sums: a joint
+    # width of 16384 fits the 227 KB a block may have, 32768 does not, and
+    # the card refuses that launch; the wrapper raises its error
+    for width, fits in ((16384, True), (32768, False)):
+        model = HybridRNNTCTC(tiny_config(joint_hidden=width), device=cuda)
+        f_big = torch.zeros((2, 5, width), device=cuda)
+        if fits:
+            ids, n = rnnt_greedy_decode_fused(f_big, lens, lang, model)
+            ids_p, n_p = rnnt_greedy_decode_fused_reference(f_big, lens, lang, model)
+            assert torch.equal(ids, ids_p) and torch.equal(n, n_p)
+        else:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                rnnt_greedy_decode_fused(f_big, lens, lang, model)
+    assert rnnt_greedy_decode_fused.launches == 1
 
 
 @pytest.mark.gpu

@@ -6,11 +6,13 @@ on the CPU: identical hypotheses for every decoder, and ``run_eval``'s
 metric keys."""
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from indic_cl_asr_tpu.audio.features import FrontendConfig as JaxFrontend
 from indic_cl_asr_tpu.data.pipeline import BucketSpec as JaxBuckets
@@ -22,7 +24,8 @@ from indic_cl_asr_torch.data.pipeline import BucketSpec
 from indic_cl_asr_torch.data.tokenizer import CharTokenizer, MultilingualTokenizer
 from indic_cl_asr_torch.models.convert import from_jax_variables
 from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC, tiny_config
-from indic_cl_asr_torch.train.eval import Transcriber, run_eval
+from indic_cl_asr_torch.train.eval import Transcriber, resolve_decoders, run_eval
+from indic_cl_asr_torch.train.step import StepConfig
 
 from .synth import make_texts, make_wav_dataset
 
@@ -145,3 +148,73 @@ def test_run_eval_metric_keys_and_files(setup):
         Transcriber(model=HybridRNNTCTC(tiny_config(pred_rnn_layers=2), device="cpu"),
                     tokenizer=pt.tokenizer, languages=LANGS,
                     frontend=FrontendConfig(n_mels=32), beam_impl="fused")
+
+
+def _model_on(device, layers):
+    """A stand-in for a HybridRNNTCTC on ``device``: the Transcriber's
+    constructor reads only the model's config and device, so a CUDA model
+    is simulated without a card and nothing is launched."""
+    return types.SimpleNamespace(cfg=tiny_config(pred_rnn_layers=layers),
+                                 device=torch.device(device))
+
+
+@pytest.mark.parametrize("device,layers,want", [
+    ("cuda", 1, ("fused", "fused")),
+    ("cuda", 2, ("labelsync", "xla")),
+    ("cuda", 3, ("labelsync", "xla")),
+    ("cpu", 1, ("framesync", "xla")),
+    ("cpu", 2, ("framesync", "xla")),
+])
+def test_auto_decoders_follow_the_config(device, layers, want):
+    """``"auto"`` as the JAX package resolves it: the fused kernels only
+    for a single-layer LSTM on CUDA; label-looping greedy and the batched
+    beam for a deeper prediction net; the CPU's choices unchanged."""
+    assert resolve_decoders("auto", "auto", torch.device(device), layers) == want
+    tr = Transcriber(model=_model_on(device, layers), tokenizer=None, languages=LANGS,
+                     frontend=FrontendConfig(n_mels=32))
+    assert (tr.greedy_impl, tr.beam_impl) == want
+    # explicit choices pass through
+    assert resolve_decoders("framesync", "xla", torch.device(device), layers) == (
+        "framesync", "xla")
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("greedy,beam,match", [
+    ("fused", "auto", 'greedy_impl="labelsync"'),
+    ("auto", "fused", 'beam_impl="xla"'),
+])
+def test_explicit_fused_on_a_multilayer_lstm_raises(device, greedy, beam, match):
+    with pytest.raises(ValueError, match=match):
+        Transcriber(model=_model_on(device, 2), tokenizer=None, languages=LANGS,
+                    frontend=FrontendConfig(n_mels=32), greedy_impl=greedy, beam_impl=beam)
+
+
+def test_run_sequence_default_transcriber_on_a_two_layer_lstm(monkeypatch):
+    """``run_sequence`` builds its own Transcriber when given none: on a
+    (simulated) CUDA model with a two-layer LSTM it constructs, with
+    label-looping greedy and the batched beam, and the sequence goes on to
+    its first task (stopped there: nothing is trained or launched)."""
+    from indic_cl_asr_torch.train import driver
+
+    class Stop(Exception):
+        pass
+
+    class Method:
+        def make_train_step(self, make_step, lang_idx):
+            raise Stop
+
+    made = []
+
+    def transcriber(**kw):
+        made.append(Transcriber(**kw))
+        return made[-1]
+
+    monkeypatch.setattr(driver, "resolve_device", lambda device: torch.device("cuda"))
+    monkeypatch.setattr(driver, "Transcriber", transcriber)
+    step_cfg = StepConfig(frontend=FrontendConfig(n_mels=32))
+    with pytest.raises(Stop):
+        driver.run_sequence(cfg=driver.DriverConfig(n_langs=1), model=_model_on("cuda", 2),
+                            step_cfg=step_cfg, optimizer=None, method=Method(),
+                            task_data={"hindi": None}, tokenizer=None, logger=None,
+                            languages=["hindi"])
+    assert [(t.greedy_impl, t.beam_impl) for t in made] == [("labelsync", "xla")]
