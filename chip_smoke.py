@@ -96,7 +96,10 @@ Phases, each of which fails the script when it fails:
    batch and by the LwF teacher's forwards; bwt_curves.json and
    model_<lang>.npz written. Then ms per step of one flagship batch under
    ``rnnt_impl="pallas"`` and ``"xla"`` (in turns), one profiled step of
-   each, and the joint kernels timed at the inputs that step gave them.
+   each (device-busy ms and idle share), and the joint kernels timed at
+   the inputs that step gave them: the backward's bound also at the TF32
+   rate of the split passes it runs, each of its kernels' share of one
+   profiled call, and ptxas's registers and spills for each.
 
 Prints the card's name and power limit (``nvidia-smi``) on a line of its
 own first, then the full record as one ``record {...}`` line, the
@@ -120,6 +123,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core peak
 PEAK_F32_FLOPS = 67e12       # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 tensor-core peak
 N_LAYERS = 17
 
 
@@ -1704,11 +1708,47 @@ def time_cl_step(dev, rec, tasks, tok, spec, steps=5):
     rec["cl_step_profile"] = {}
     for impl in ("pallas", "xla"):
         log(f"  rnnt_impl={impl!r}:")
-        rec["cl_step_profile"][impl] = profile_step(train[impl], batch, min(ms[impl]), top=8)
+        rec["cl_step_profile"][impl] = profile_step(train[impl], batch, min(ms[impl]), top=12)
+    prof = rec["cl_step_profile"]
+    log("  step device-busy ms (idle share): " + ", ".join(
+        f"{impl} {prof[impl]['device_busy_ms']:.3f} ({prof[impl]['idle_share']:.3f})"
+        for impl in ("pallas", "xla")))
     captured = capture_joint_inputs(train["pallas"], batch)
     del model, opt, train
     torch.cuda.empty_cache()
     return captured
+
+
+def profile_call(fn, calls=3, tries=3):
+    """Device ms a launch, by kernel (and copy or fill), over ``calls``
+    calls of ``fn`` in one profiler session that traces the card only:
+    {name: (ms a launch, launches recorded)}. A session late in a long run
+    has come back with the port's kernels missing from some calls, which
+    a mean over the recorded launches does not feel; one with no more than
+    one name is repeated, up to ``tries`` sessions."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        sums = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                name = re.sub(r"^void |\(anonymous namespace\)::|<.*|\(.*", "", e.key).strip()[:60]
+                ms, n = sums.get(name, (0.0, 0))
+                sums[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        out = {k: (ms / n, n) for k, (ms, n) in sums.items()}
+        if len(out) > 1:
+            break
+    return out
 
 
 def time_joint_kernels(captured, launches, rec):
@@ -1739,6 +1779,23 @@ def time_joint_kernels(captured, launches, rec):
                                                         dlpl, **kw), iters=5)
         fwd_plain = cuda_ms(plain_fwd, iters=3, warmup=1)
         bwd_plain = cuda_ms(plain_bwd, iters=3, warmup=1)
+    bwd_parts = profile_call(lambda: J.joint_fused_backward(
+        f, g, w, bias, labels, seed, lse, dlpb, dlpl, **kw))
+    # the backward's products as it runs them: TF32 passes of split operands
+    passes = J.TF32_PASSES[f.element_size()]
+    tf32_ms = passes * 2 * B * T * U1 * H * V1 / PEAK_TF32_FLOPS * 1e3
+    busy = sum(ms for ms, _ in bwd_parts.values())
+    rec["joint_fused_backward_tf32_bound_ms"] = tf32_ms
+    rec["joint_fused_backward_profile_ms"] = bwd_parts
+    log(f"  joint_fused_backward, profiled: ms a launch (share of their sum {busy:.4f} ms; "
+        f"launches recorded): " + ", ".join(
+            f"{k} {ms:.4f} ({ms / busy:.3f}; {n})"
+            for k, (ms, n) in sorted(bwd_parts.items(), key=lambda kv: -kv[1][0])))
+    rec["joint_fused_backward_ptxas"] = {
+        k: ptxas_lines("joint_fused", k)
+        for k in ("joint_form_kernel", "joint_dlogits_dx_kernel", "joint_dw_db_kernel")}
+    for k, v in rec["joint_fused_backward_ptxas"].items():
+        log(f"  {k}: {v}")
     lines = []
     for name, ms, plain, err, backward, site in (
             ("joint_fused_forward", fwd_ms, fwd_plain, err_f, False, 201),
@@ -1755,10 +1812,12 @@ def time_joint_kernels(captured, launches, rec):
             "library_ms": None,
         })
         rec[f"{name}_f32_core_bound_ms"] = f32_ms
+        at = (f"{f32_ms:.4f} ms at the f32 CUDA-core rate it runs on" if not backward else
+              f"{tf32_ms:.4f} ms for the {passes} TF32 passes of split operands it runs at "
+              f"495 TFLOP/s, {f32_ms:.4f} ms at the f32 CUDA-core rate")
         log(f"  {name} B{B} T{T} U+1 {U1} H{H} V+1 {V1} {str(f.dtype).split('.')[-1]} "
             f"(dropout {rate}): {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}; {nbytes} B, {flops} flop; {f32_ms:.4f} ms at the f32 CUDA-core "
-            f"rate), max abs err {err:.3e}")
+            f"({b_by}; {nbytes} B, {flops} flop; {at}), max abs err {err:.3e}")
     return lines
 
 

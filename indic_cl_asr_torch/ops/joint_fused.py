@@ -27,10 +27,20 @@ The plain version (``joint_slabs_reference``) runs the forward and a
 hand-written backward (the math of ``_fwd_kernel`` and ``_bwd_kernel``)
 in chunks of ``PLAIN_CHUNK`` frames to bound memory. On CUDA tensors
 ``joint_slabs`` launches the kernels of ``csrc/joint_fused.cu``: one
-forward kernel a call, and two backward kernels a call (dlogits with
-d_x, df and dg; then dW and db), with an f32 dlogits scratch of
-B·T·(U+1)·(V+1) values (433 MB at the flagship's B16 T204 U+1 129 V+1
-257). The forward also keeps each pair's log-sum-exp for the backward.
+forward kernel a call (scalar f32 FMAs on the CUDA cores), and two
+backward kernels a call (dlogits with d_x, df and dg; then dW and db),
+with a scratch of the f32 dlogits, B·T·(U+1) rows of V+1 rounded up to 8
+(445 MB at the flagship's B16 T204 U+1 129 V+1 257), and the joint input
+x as the first kernel formed it (B·T·(U+1) rows of H rounded up to 8 in
+the compute dtype, 539 MB in bf16), which the dW kernel reads instead of
+forming it again. The forward also keeps each pair's
+log-sum-exp for the backward. The backward's three products (the logits
+again, d_x = dlogits·Wᵀ, dW = xᵀ·dlogits) run on the tensor cores as
+TF32 ``mma.sync`` with split operands (3xTF32: each f32 operand is
+tf32(a) + tf32(a - tf32(a)), three passes, two where the operand is a
+bf16 joint input, exact in TF32), each mma chain added into an f32 total
+every 16 k-steps, so that the backward keeps the plain version's f32
+tolerances; ``TF32_PASSES`` counts the passes for the bound.
 """
 
 from __future__ import annotations
@@ -43,6 +53,9 @@ from . import _build
 from .flash_mhsa import _M32, _fmix32, _mul32, keep_threshold
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# TF32 passes of one pairs x H x V1 product that the backward runs, by the
+# joint input's itemsize: the logits and dW 2 (bf16 x exact) or 3, d_x 3
+TF32_PASSES = {2: 7, 4: 9}
 PLAIN_CHUNK = 16  # frames per chunk of the plain version
 _SMEM_MAX = 232448
 
@@ -216,13 +229,14 @@ def joint_fused_backward(f, g, w, bias, labels, seed: int, lse, dlpb, dlpl, *,
     dlpb = dlpb.float().contiguous()
     dlpl = dlpl.float().contiguous()
     f32 = dict(dtype=torch.float32, device=f.device)
-    scratch = torch.empty((B, T, U1, V1), **f32)
+    lib = _build.load("joint_fused")
+    _check_smem(lib, H, V1, drop[-1])
+    # dlogits, then the joint input as the first kernel formed it
+    scratch = torch.empty(lib.joint_fused_bwd_scratch(B, T, U1, H, V1, drop[-1]), **f32)
     df = torch.zeros((B, T, H), **f32)
     dg = torch.zeros((B, U1, H), **f32)
     dw = torch.empty((B, H, V1), **f32)
     db = torch.empty((B, V1), **f32)
-    lib = _build.load("joint_fused")
-    _check_smem(lib, H, V1, drop[-1])
     stream = torch.cuda.current_stream(f.device).cuda_stream
     ptr = _build.ptr
     err = lib.joint_fused_bwd(ptr(fc), ptr(gc), ptr(wc), ptr(bc), ptr(lab), ptr(lse),
@@ -319,6 +333,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.joint_fused_fwd.restype = i
     lib.joint_fused_bwd.argtypes = [vp] * 13 + [i] * 6 + [u, u, f, i, i, vp]
     lib.joint_fused_bwd.restype = i
+    lib.joint_fused_bwd_scratch.argtypes = [i] * 6
+    lib.joint_fused_bwd_scratch.restype = ctypes.c_longlong
     lib.joint_fused_smem.argtypes = [i, i, i, i]
     lib.joint_fused_smem.restype = i
     lib.joint_dropout_bits.argtypes = [u, i, i, i, i, vp, vp]

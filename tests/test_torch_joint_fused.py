@@ -269,3 +269,75 @@ def test_step_config_takes_the_jax_values_and_rejects_others():
     for kw in (dict(rnnt_impl="cuda"), dict(rnnt_remat="all"), dict(ctc_impl="cudnn")):
         with pytest.raises(ValueError):
             StepConfig(**kw)
+
+
+def _tf32(a):
+    """TF32 as the tensor cores read an f32 operand: its 13 low mantissa
+    bits ignored (rounded toward zero)."""
+    return (a.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(a):
+    """The kernel's split: big = a, read as tf32(a); small = a - tf32(a),
+    exact in f32, read as tf32(small)."""
+    big = _tf32(a)
+    return big, _tf32(a - big)
+
+
+def _split_product(a, b, split_a, k_chunk=128):
+    """a [M, K] · b [K, N] as the backward kernel forms it: both operands
+    split into TF32 parts (``a`` only when ``split_a``: a bf16 joint input
+    is exact in TF32), the passes small·big, big·small, big·big summed in
+    f32 over a chain of ``k_chunk`` terms (16 mma k-steps), each chain then
+    added into an f32 total."""
+    ab, asm = _split(a) if split_a else (a, None)
+    bb, bs = _split(b)
+    total = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, a.shape[1], k_chunk):
+        k = slice(k0, k0 + k_chunk)
+        chain = ab[:, k] @ bs[k]
+        if split_a:
+            chain = asm[:, k] @ bb[k] + chain
+        total += chain + ab[:, k] @ bb[k]
+    return total
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_split_tf32_products_keep_the_f32_tolerances(dtype):
+    """The precision argument of the CUDA backward (csrc/joint_fused.cu),
+    checked on the CPU: its three products (the logits x·W, d_x =
+    dlogits·Wᵀ, dW = xᵀ·dlogits) formed from TF32-split operands with f32
+    chains lie within the tolerances the kernels are held to, against the
+    f64 products at the flagship widths (H640, V+1 257) on B2 x 16 frames
+    x U+1 129: logits atol 1e-5 (the slabs' bar), d_x and dW within 1e-5
+    of max|ref| (df, dg in f32; dW). A single TF32 pass misses the dW bar,
+    which is why the kernel splits."""
+    rng = np.random.default_rng(21)
+    B, Tc, U1, H, V1 = 2, 16, 129, 640, 257
+    tdt = getattr(torch, dtype)
+    f = torch.from_numpy((0.5 * rng.standard_normal((B, Tc, H))).astype(np.float32)).to(tdt)
+    g = torch.from_numpy((0.5 * rng.standard_normal((B, U1, H))).astype(np.float32)).to(tdt)
+    w = torch.from_numpy((rng.standard_normal((B, H, V1)) * H ** -0.5 * 4).astype(np.float32))
+    cb = torch.from_numpy(rng.standard_normal((B, Tc * U1, 1)))
+    cl = torch.from_numpy(rng.standard_normal((B, Tc * U1, 1)))
+    labels = torch.from_numpy(rng.integers(0, V1 - 1, (B, Tc * U1)))
+    x = torch.relu(f[:, :, None] + g[:, None]).reshape(B, Tc * U1, H).float()
+    split_x = dtype == "float32"
+    for b in range(B):
+        x64, w64 = x[b].double(), w[b].double()
+        z64 = x64 @ w64
+        z = _split_product(x[b], w[b], split_x)
+        assert (z.double() - z64).abs().max() <= 1e-5
+        p = torch.softmax(z64, -1)
+        dz64 = -p * (cb[b] + cl[b])
+        dz64[:, V1 - 1] += cb[b][:, 0]
+        dz64[torch.arange(Tc * U1), labels[b]] += cl[b][:, 0]
+        dz = dz64.float()
+        dx64 = dz.double() @ w64.T
+        dx = _split_product(dz, w[b].T.contiguous(), True)
+        assert (dx.double() - dx64).abs().max() <= 1e-5 * dx64.abs().max()
+        dw64 = x64.T @ dz.double()
+        dw = _split_product(x[b].T.contiguous(), dz, split_x)
+        assert (dw.double() - dw64).abs().max() <= 1e-5 * dw64.abs().max()
+        one_pass = _tf32(x[b].T.contiguous()) @ _tf32(dz)
+        assert (one_pass.double() - dw64).abs().max() > 1e-5 * dw64.abs().max()

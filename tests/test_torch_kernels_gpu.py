@@ -354,13 +354,18 @@ def _joint_inputs(B, T, U1, H, V1, dtype, dev, seed=0):
 @pytest.mark.parametrize("dtype,grad_tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 @pytest.mark.parametrize("B,T,U1,H,V1", [(16, 204, 129, 640, 257), (3, 37, 9, 64, 33),
-                                         (2, 5, 3, 640, 257), (2, 70, 130, 96, 300)])
+                                         (2, 5, 3, 640, 257), (2, 70, 130, 96, 300),
+                                         (2, 19, 11, 136, 129)])
 def test_joint_fused_kernels_match_plain(cuda, dtype, grad_tol, rate, B, T, U1, H, V1):
     """Both slabs atol 1e-5 (the joint input is rounded the same way on
     both sides; f32 sums in another order); dW and db within 1e-5 of
-    max|ref| (f32 outputs); df and dg within 1e-5 of max|ref| in f32 and
-    1e-2 in bf16, where both sides round their f32 sums to bf16 once (one
-    bf16 step is 2^-8 of the value) and f32 atomics sum in another order."""
+    max|ref| (f32 outputs; the backward's products are split TF32 on the
+    tensor cores, as faithful as f32 sums); df and dg within 1e-5 of
+    max|ref| in f32 and 1e-2 in bf16, where both sides round their f32
+    sums to bf16 once (one bf16 step is 2^-8 of the value) and f32
+    atomics sum in another order. The last shape cuts every tile edge of
+    the backward: 209 pairs, H 136 and V+1 129 are multiples of none of
+    its pair tiles, head tiles, column chunks or dW tiles."""
     from indic_cl_asr_torch.ops import joint_fused as J
 
     args, (dlpb, dlpl) = _joint_inputs(B, T, U1, H, V1, dtype, cuda, seed=T + U1)
@@ -396,11 +401,22 @@ def test_joint_dropout_bits_match_plain(cuda):
 
 @pytest.mark.gpu
 def test_joint_kernels_reject_what_they_do_not_take(cuda):
+    from indic_cl_asr_torch.ops import _build
     from indic_cl_asr_torch.ops import joint_fused as J
 
     args, _ = _joint_inputs(2, 5, 3, 2048, 9, torch.float32, cuda)
     with pytest.raises(ValueError):  # H=2048 in f32 overflows shared memory
         J.joint_slabs(*args, 0, blank=8)
+    # H=768 in bf16: the forward fits, but not the backward's tile of 128
+    # pairs' joint input beside its head ring
+    lib = _build.load("joint_fused")
+    assert lib.joint_fused_smem(768, 9, 1, 0) <= J._SMEM_MAX < lib.joint_fused_smem(768, 9, 1, 1)
+    args, (dlpb, dlpl) = _joint_inputs(2, 5, 3, 768, 9, torch.bfloat16, cuda)
+    with pytest.raises(ValueError):
+        J.joint_slabs(*args, 0, blank=8)
+    lse = torch.zeros((2, 5, 3), device=cuda)
+    with pytest.raises(ValueError):
+        J.joint_fused_backward(*args, 0, lse, dlpb, dlpl, blank=8, dropout_rate=0.0)
     args, _ = _joint_inputs(2, 5, 3, 16, 9, torch.float16, cuda)
     with pytest.raises(TypeError):
         J.joint_slabs(*args, 0, blank=8)
