@@ -37,7 +37,9 @@ Phases, each of which fails the script when it fails:
    (T not a multiple of the 8-frame tile, the rows' heads from two
    languages, a label outside the head) in f32 and bf16, dropout 0 and
    0.2, against the plain version with the same dropout bits: slabs atol
-   1e-5, dW and db within 1e-5·max|ref|, df and dg within 1e-5·max|ref|
+   1e-5 of the forward evaluated exactly (the plain version with an f64
+   head; the f32 plain version's own sums are up to ~1e-5 off there), dW
+   and db within 1e-5·max|ref|, df and dg within 1e-5·max|ref|
    in f32 and 1e-2·max|ref| in bf16 (both sides round one f32 sum to
    bf16; a bf16 step is 2^-8 of the value, and the kernels' f32 atomics
    sum in another order); the kernels' dropout bits equal the plain
@@ -94,18 +96,21 @@ Phases, each of which fails the script when it fails:
    LwF's rnnt_kd and ctc_kd finite and > 0; frozen parameters
    bit-unchanged; BatchNorm statistics bit-unchanged by every importance
    batch and by the LwF teacher's forwards; bwt_curves.json and
-   model_<lang>.npz written. Then ms per step of one flagship batch under
-   ``rnnt_impl="pallas"`` and ``"xla"`` (in turns), one profiled step of
-   each (device-busy ms and idle share), and the joint kernels timed at
-   the inputs that step gave them: the backward's bound also at the TF32
-   rate of the split passes it runs, each of its kernels' share of one
-   profiled call, and ptxas's registers and spills for each.
+   model_<lang>.npz written. Then the peak memory of one step of a
+   flagship batch under ``rnnt_impl="pallas"`` and ``"xla"``, ms per step
+   (in turns), one profiled step of each (device-busy ms and idle share),
+   and the joint kernels timed at the inputs that step gave them: the
+   forward, the backward on the forward's inputs scratch (the training
+   path) and on one it forms itself, their sum, each bound also at the
+   TF32 rate of the split passes it runs, each launch's share of one
+   profiled call, and ptxas's registers and spills for each kernel.
 
 Prints the card's name and power limit (``nvidia-smi``) on a line of its
 own first, then the full record as one ``record {...}`` line, the
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
-"device": {...}}``; before them, the end-to-end numbers the greedy decode
-moves (RNNT serving utts/s and idle share, CL wall time per method).
+"device": {...}}``; before them, the end-to-end numbers the fused joint
+moves (the flagship CL step's wall and device-busy ms, idle share and
+peak memory under each ``rnnt_impl``, CL wall time per method).
 Exits non-zero without a CUDA card.
 """
 
@@ -1038,14 +1043,21 @@ def check_joint(dev, rec):
                 lpb, lpl = fn(*leaves, args[4], 1234, **kw)
                 grads = torch.autograd.grad((lpb * dlpb + lpl * dlpl).sum(), leaves)
                 out[name] = (lpb, lpl, grads)
+            with torch.no_grad():  # the forward evaluated exactly: f64 head and sums
+                xb, xl = J._forward_reference(*args[:2], args[2].double(), args[3].double(),
+                                              args[4], 1234, V1 - 1, rate)
             torch.cuda.synchronize()
             (kb, kl, kg), (pb, pl, pg) = out["kernel"], out["plain"]
-            slab = max((kb - pb).abs().max().item(), (kl - pl).abs().max().item())
+            slab = max((kb - xb).abs().max().item(), (kl - xl).abs().max().item())
+            slab_plain = max((kb - pb).abs().max().item(), (kl - pl).abs().max().item())
+            plain_exact = max((pb - xb).abs().max().item(), (pl - xl).abs().max().item())
             grad = {n: (a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
                     for n, a, b in zip(("df", "dg", "dW", "db"), kg, pg)}
             tag = f"B16 T204 U+1 129 {str(dtype).split('.')[-1]} drop {rate}"
-            errs[tag] = {"slabs_abs": slab, **grad}
-            log(f"  joint {tag}: slabs max abs err {slab:.3e} (tol 1e-5); grads err / "
+            errs[tag] = {"slabs_abs": slab, "slabs_abs_vs_f32_plain": slab_plain,
+                         "f32_plain_slabs_abs": plain_exact, **grad}
+            log(f"  joint {tag}: slabs max abs err {slab:.3e} (tol 1e-5; against the f32 plain "
+                f"version {slab_plain:.3e}, which is {plain_exact:.3e} off); grads err / "
                 f"max|ref| " + ", ".join(f"{n} {e:.3e}" for n, e in grad.items())
                 + f" (tol df, dg {grad_tol:g}; dW, db 1e-5)")
             dtypes_ok = all(a.dtype == b.dtype for a, b in zip(kg, pg))
@@ -1674,10 +1686,10 @@ def capture_joint_inputs(step, batch):
     return seen
 
 
-def time_cl_step(dev, rec, tasks, tok, spec, steps=5):
-    """ms per step of one flagship batch under rnnt_impl "pallas" and
-    "xla", in turns (pallas, xla, xla, pallas), one profiled step of each,
-    and the joint kernels' inputs from a pallas step."""
+def cl_step_setup(dev, tasks, tok, spec):
+    """The flagship CL model's train steps under rnnt_impl "pallas" and
+    "xla", one B16 batch of the first language on the card, a host
+    generator, and one warm-up step of each."""
     import dataclasses
 
     import torch
@@ -1693,6 +1705,38 @@ def time_cl_step(dev, rec, tasks, tok, spec, steps=5):
     gen = torch.Generator().manual_seed(0)
     for impl in train:
         train[impl](batch, gen)  # warm-up
+    return model, opt, train, host, batch, gen
+
+
+def step_peak_bytes(train, batch, gen):
+    """Device memory of one step of each of ``train``'s steps: allocated
+    before it and the peak over it (``max_memory_allocated``), in bytes."""
+    import torch
+
+    out = {}
+    for impl, step in train.items():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(batch, gen)
+        torch.cuda.synchronize()
+        out[impl] = {"before": before, "peak": torch.cuda.max_memory_allocated()}
+    return out
+
+
+def time_cl_step(dev, rec, tasks, tok, spec, steps=5):
+    """ms per step of one flagship batch under rnnt_impl "pallas" and
+    "xla", in turns (pallas, xla, xla, pallas), each step's peak memory,
+    one profiled step of each, and the joint kernels' inputs from a pallas
+    step."""
+    import torch
+
+    model, opt, train, host, batch, gen = cl_step_setup(dev, tasks, tok, spec)
+    mem = step_peak_bytes(train, batch, gen)
+    rec["cl_step_memory_bytes"] = mem
+    log("  peak memory of a step (allocated before it): " + ", ".join(
+        f"{impl} {m['peak'] / 2**30:.3f} GiB ({m['before'] / 2**30:.3f})"
+        for impl, m in mem.items()))
     ms = {"pallas": [], "xla": []}
     for impl in ("pallas", "xla", "xla", "pallas"):
         torch.cuda.synchronize()
@@ -1765,37 +1809,46 @@ def time_joint_kernels(captured, launches, rec):
     plain_fwd = lambda: J._forward_reference(f, g, w32, b32, labels, seed, kw["blank"], rate)  # noqa: E731
     plain_bwd = lambda: J._backward_reference(f, g, w32, b32, labels, seed, kw["blank"],  # noqa: E731
                                               rate, dlpb, dlpl)
+    fwd = lambda: J.joint_fused_forward(f, g, w, bias, labels, seed, **kw)  # noqa: E731
+    # the training path: the backward on the forward's inputs scratch; and
+    # the backward that forms its own
+    bwd = lambda: J.joint_fused_backward(f, g, w, bias, labels, seed, lse, dlpb, dlpl,  # noqa: E731
+                                         inputs=inputs, **kw)
+    bwd_own = lambda: J.joint_fused_backward(f, g, w, bias, labels, seed, lse, dlpb, dlpl,  # noqa: E731
+                                             **kw)
     with torch.no_grad():
-        kb, kl, _ = J.joint_fused_forward(f, g, w, bias, labels, seed, **kw)
-        pb, pl = plain_fwd()
+        kb, kl, _, inputs = fwd()
+        # against the forward evaluated exactly (f64 head and sums)
+        pb, pl = J._forward_reference(f, g, w.double(), bias.double(), labels, seed,
+                                      kw["blank"], rate)
         err_f = max((kb - pb).abs().max().item(), (kl - pl).abs().max().item())
-        grads = J.joint_fused_backward(f, g, w, bias, labels, seed, lse, dlpb, dlpl, **kw)
+        grads = bwd()
         # the plain version's f32 sums rounded to the kernel's output dtypes
         err_b = max((a.float() - b.to(a.dtype).float()).abs().max().item()
                     for a, b in zip(grads, plain_bwd()))
-        fwd_ms = cuda_ms(lambda: J.joint_fused_forward(f, g, w, bias, labels, seed, **kw),
-                         iters=10)
-        bwd_ms = cuda_ms(lambda: J.joint_fused_backward(f, g, w, bias, labels, seed, lse, dlpb,
-                                                        dlpl, **kw), iters=5)
+        fwd_ms = cuda_ms(fwd, iters=10)
+        bwd_ms = cuda_ms(bwd, iters=5)
+        bwd_own_ms = cuda_ms(bwd_own, iters=5)
         fwd_plain = cuda_ms(plain_fwd, iters=3, warmup=1)
         bwd_plain = cuda_ms(plain_bwd, iters=3, warmup=1)
-    bwd_parts = profile_call(lambda: J.joint_fused_backward(
-        f, g, w, bias, labels, seed, lse, dlpb, dlpl, **kw))
-    # the backward's products as it runs them: TF32 passes of split operands
-    passes = J.TF32_PASSES[f.element_size()]
-    tf32_ms = passes * 2 * B * T * U1 * H * V1 / PEAK_TF32_FLOPS * 1e3
-    busy = sum(ms for ms, _ in bwd_parts.values())
-    rec["joint_fused_backward_tf32_bound_ms"] = tf32_ms
-    rec["joint_fused_backward_profile_ms"] = bwd_parts
-    log(f"  joint_fused_backward, profiled: ms a launch (share of their sum {busy:.4f} ms; "
-        f"launches recorded): " + ", ".join(
-            f"{k} {ms:.4f} ({ms / busy:.3f}; {n})"
-            for k, (ms, n) in sorted(bwd_parts.items(), key=lambda kv: -kv[1][0])))
-    rec["joint_fused_backward_ptxas"] = {
+    parts = {"forward": profile_call(fwd), "backward": profile_call(bwd)}
+    rec["joint_fused_profile_ms"] = parts
+    for name, p in parts.items():
+        busy = sum(ms for ms, _ in p.values())
+        log(f"  joint_fused_{name}, profiled: ms a launch (share of their sum {busy:.4f} ms; "
+            f"launches recorded): " + ", ".join(
+                f"{k} {ms:.4f} ({ms / busy:.3f}; {n})"
+                for k, (ms, n) in sorted(p.items(), key=lambda kv: -kv[1][0])))
+    rec["joint_fused_ptxas"] = {
         k: ptxas_lines("joint_fused", k)
-        for k in ("joint_form_kernel", "joint_dlogits_dx_kernel", "joint_dw_db_kernel")}
-    for k, v in rec["joint_fused_backward_ptxas"].items():
+        for k in ("joint_form_kernel", "joint_logits_lse_kernel", "joint_dlogits_dx_kernel",
+                  "joint_dw_db_kernel")}
+    for k, v in rec["joint_fused_ptxas"].items():
         log(f"  {k}: {v}")
+    rec["joint_fused_pair_ms"] = fwd_ms + bwd_ms
+    rec["joint_fused_backward_own_inputs_ms"] = bwd_own_ms
+    log(f"  joint forward + backward a call {fwd_ms + bwd_ms:.4f} ms; the backward forming "
+        f"its own inputs {bwd_own_ms:.4f} ms (on the forward's {bwd_ms:.4f} ms)")
     lines = []
     for name, ms, plain, err, backward, site in (
             ("joint_fused_forward", fwd_ms, fwd_plain, err_f, False, 201),
@@ -1803,6 +1856,9 @@ def time_joint_kernels(captured, launches, rec):
         nbytes, flops = J.work(B, T, U1, H, V1, itemsize=f.element_size(), backward=backward)
         b_ms, b_by = bound_ms(nbytes, flops)
         f32_ms = flops / PEAK_F32_FLOPS * 1e3
+        # the products as the kernels run them: TF32 passes of split operands
+        passes = J.TF32_PASSES["backward" if backward else "forward"][f.element_size()]
+        tf32_ms = passes * 2 * B * T * U1 * H * V1 / PEAK_TF32_FLOPS * 1e3
         lines.append({
             "name": name, "route": "cuda",
             "source": "indic_cl_asr_torch/csrc/joint_fused.cu",
@@ -1812,12 +1868,12 @@ def time_joint_kernels(captured, launches, rec):
             "library_ms": None,
         })
         rec[f"{name}_f32_core_bound_ms"] = f32_ms
-        at = (f"{f32_ms:.4f} ms at the f32 CUDA-core rate it runs on" if not backward else
-              f"{tf32_ms:.4f} ms for the {passes} TF32 passes of split operands it runs at "
-              f"495 TFLOP/s, {f32_ms:.4f} ms at the f32 CUDA-core rate")
+        rec[f"{name}_tf32_bound_ms"] = tf32_ms
         log(f"  {name} B{B} T{T} U+1 {U1} H{H} V+1 {V1} {str(f.dtype).split('.')[-1]} "
             f"(dropout {rate}): {ms:.4f} ms, plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}; {nbytes} B, {flops} flop; {at}), max abs err {err:.3e}")
+            f"({b_by}; {nbytes} B, {flops} flop; {tf32_ms:.4f} ms for the {passes} TF32 "
+            f"passes of split operands it runs at 495 TFLOP/s, {f32_ms:.4f} ms at the f32 "
+            f"CUDA-core rate), max abs err {err:.3e}")
     return lines
 
 
@@ -1911,18 +1967,20 @@ def main() -> int:
              "rnnt_greedy_decode_fused", "rnnt_beam_search_fused"]
     kernels.sort(key=lambda k: order.index(k["name"]))
     rec["kernels"] = kernels
-    # the end-to-end numbers the greedy decode moves: serving's RNNT pass
-    # (phase 4) and the CL sequences, whose evals decode every set (phase 8)
-    more = rec["slice_bf16"]["utts_per_s_more_passes"]["rnnt"]
+    # the end-to-end numbers the fused joint moves: a flagship CL step
+    # under each rnnt_impl (wall and device-busy ms, idle share, peak
+    # memory) and the CL sequences, whose steps run the pallas joint
+    prof = rec["cl_step_profile"]
     rec["end_to_end"] = {
-        "rnnt_serving_utts_per_s": rec["slice_bf16"]["rnnt_utts_per_s"],
-        "rnnt_serving_utts_per_s_median_of_more": sorted(more)[len(more) // 2],
-        "rnnt_serving_idle_share": rec["profile_rnnt"]["idle_share"],
+        "cl_step_ms": rec["cl_step_ms"],
+        "cl_step_busy_ms": {impl: prof[impl]["device_busy_ms"] for impl in prof},
+        "cl_step_idle_share": {impl: prof[impl]["idle_share"] for impl in prof},
+        "cl_step_peak_bytes": {impl: m["peak"] for impl, m in rec["cl_step_memory_bytes"].items()},
         "cl_wall_s": {m: rec["cl"][m]["wall_s"] for m in CL_METHODS}}
     e2e = rec["end_to_end"]
-    log(f"end to end: RNNT serving {e2e['rnnt_serving_utts_per_s']:.2f} utts/s counted pass, "
-        f"{e2e['rnnt_serving_utts_per_s_median_of_more']:.2f} median of three more (idle share "
-        f"{e2e['rnnt_serving_idle_share']:.3f}); CL sequence wall s {e2e['cl_wall_s']}")
+    log(f"end to end: CL step ms (two turns each) {e2e['cl_step_ms']}, device-busy ms "
+        f"{e2e['cl_step_busy_ms']}, idle share {e2e['cl_step_idle_share']}, peak bytes "
+        f"{e2e['cl_step_peak_bytes']}; CL sequence wall s {e2e['cl_wall_s']}")
     rec["total_s"] = time.perf_counter() - t_start
     log(f"total {rec['total_s']:.1f} s")
     print("record " + json.dumps(rec))

@@ -25,26 +25,17 @@
 // backward draw the same mask whatever the tiling, and the plain version
 // (ops/joint_fused.py) computes them with int64 tensor ops.
 //
-// Forward design (a first, simple kernel): one block per (8-frame x
-// 8-label tile of pairs, row b), 256 threads. The block forms the 64
-// pairs' joint input for all of H once, into shared memory (compute
-// dtype), then walks V1 in 64-column tiles: a register-tiled product
-// (each thread 4 pairs x 4 columns, W staged 32 rows at a time), the
-// logits of the tile to shared memory, and one thread per pair keeps an
-// online max and sum over the columns and picks the blank and label
-// logits. It writes both slabs and the per-pair log-sum-exp, which the
-// backward uses to rebuild the softmax without a second reduction. It
-// runs scalar f32 FMAs on the CUDA cores.
-//
-// Backward: what bounds it. Per pair it computes what _bwd_kernel does:
+// What bounds them. The forward is one product of 2*pairs*H*V1 flops:
+// 138.5 GFLOP at the flagship (B16 T204 U1 129 H640 V1 257) against ~21
+// MB of inputs and outputs. The backward computes what _bwd_kernel does:
 //   dlogits = onehot(blank)*dlpb + onehot(y)*dlpl - softmax*(dlpb+dlpl)
 //   d_x     = dlogits . W^T, masked by relu' and the dropout keep/scale
 //   df = sum_u d_x,  dg = sum_t d_x,  dW = sum_p x^T . dlogits,  db = sum_p dlogits
-// Three products of 2*pairs*H*V1 flops each: 415.5 GFLOP at the flagship
-// (B16 T204 U1 129 H640 V1 257) against ~38 MB of inputs and outputs, so
-// operations bound it: 0.42 ms at the 989 TFLOP/s bf16 tensor rate, 6.2
-// ms at the 67 TFLOP/s f32 CUDA-core rate. All three products run on the
-// tensor cores, as warp-level mma.sync.m16n8k8 in TF32.
+// three such products (the logits again, d_x, dW), 415.5 GFLOP against
+// ~38 MB. Operations bound both: 0.14 ms and 0.42 ms at the 989 TFLOP/s
+// bf16 tensor rate, 2.1 and 6.2 ms at the 67 TFLOP/s f32 CUDA-core rate.
+// Every product runs on the tensor cores, as warp-level
+// mma.sync.m16n8k8 in TF32.
 //
 // Precision: f32-faithful split operands (3xTF32). TF32 keeps 11
 // significant bits, so each f32 operand a is split into big = tf32(a) and
@@ -54,38 +45,61 @@
 // as tf32(a) rounded toward zero, and the split costs two full-rate
 // operations (a mask and an f32 subtract); the dropped small*small term
 // and small's truncation are ~2^-20 of a*b, so each product is about as
-// faithful as the plain version's f32 sums, which the tolerances (dW, db
-// within 1e-5 of max|ref|; df, dg 1e-5 in f32) ask for, where one TF32
-// pass is ~1e-4 off (tests/test_torch_joint_fused.py emulates both). A
-// bf16 joint input is exact in TF32 (8 significant bits), so with bf16
-// f/g the logits (x.W) and dW (x^T.dlogits) take two passes and d_x
-// (dlogits.W^T) three: seven TF32 passes of 138.5 GFLOP, 970 GFLOP, a
-// bound of 1.96 ms at the 495 TFLOP/s TF32 rate (f32 f/g split x too:
-// nine passes); warp-level mma.sync does not reach that rate on Hopper,
-// wgmma does. The tensor cores add a k-step's products into the
-// accumulator with truncation, which over a long sum drifts one way; so
-// every mma chain runs for at most PROMOTE k-steps (128 terms) from zero
-// and is then added into an f32 total with a rounded add. dW sums 26,316
-// pairs of a row, which a single chain would bias by up to ~1e-5 of
-// max|dW|.
+// faithful as the plain version's f32 sums, which the tolerances (slabs
+// atol 1e-5; dW, db within 1e-5 of max|ref|; df, dg 1e-5 in f32) ask
+// for, where one TF32 pass is ~1e-4 off (tests/test_torch_joint_fused.py
+// emulates both). A bf16 joint input is exact in TF32 (8 significant
+// bits), so with bf16 f/g the logits (x.W) and dW (x^T.dlogits) take two
+// passes and d_x (dlogits.W^T) three: the forward two TF32 passes of
+// 138.5 GFLOP (277 GFLOP, a bound of 0.56 ms at the 495 TFLOP/s TF32
+// rate; f32 f/g split x too: three, 0.84 ms), the backward seven (970
+// GFLOP, 1.96 ms; f32 nine); warp-level mma.sync does not reach that
+// rate on Hopper, wgmma does. The tensor cores add a k-step's products
+// into the accumulator with truncation, which over a long sum drifts one
+// way; so every mma chain runs for at most PROMOTE k-steps (128 terms)
+// from zero and is then added into an f32 total with a rounded add. dW
+// sums 26,316 pairs of a row, which a single chain would bias by up to
+// ~1e-5 of max|dW|. The forward's slabs are held to atol 1e-5 where the
+// logits reach ~10 (an f32 step there is ~1e-6), and chains of 16
+// k-steps drift them by up to 2.7e-5 (in f32 on the card): a chain's
+// truncations all point the way of its running sum, and scale with it.
+// So the forward's chains are FWD_CHAIN = 2 k-steps long (MI*6*4 f32
+// adds every 2 k-steps), and its small parts are read rounded to nearest
+// (one integer add) instead of truncated: its slabs lie within 6e-6 of
+// the exact ones at the flagship on the card, closer than the f32 plain
+// version's (up to 9e-6). The CPU emulation (tests/test_torch_joint_fused.py)
+// models both schemes, truncation included.
 //
-// Backward design: four launches, m16n8k8 tiles, 8 warps a block.
-//   0. joint_pad_head_kernel copies the head into the scratch with rows
-//      padded to V8 (V1 rounded up to 8), so that head tiles move 16
+// Launches, m16n8k8 tiles, 8 warps a block.
+//   Forward, three launches:
+//   0. joint_pad_head_kernel copies the head into the inputs scratch with
+//      rows padded to V8 (V1 rounded up to 8), so that head tiles move 16
 //      bytes a copy; joint_form_kernel forms x and its relu'*keep bits
-//      (the dropout hash) once for every pair into the scratch, a thread
-//      a pair's 8 columns, many blocks an SM. Formed inside the pair-tile
-//      kernel, where 8 warps an SM could not hide the loads behind the
-//      hash, x cost more than this launch does.
-//   1. joint_dlogits_dx_kernel: one block per pair tile (bf16: 16 frames
+//      (the dropout hash) once for every pair into the same scratch, a
+//      thread a pair's 8 columns, many blocks an SM. Formed inside a
+//      pair-tile kernel, where 8 warps an SM could not hide the loads
+//      behind the hash, x cost more than this launch does. The backward
+//      of the same call reads this scratch again.
+//   F. joint_logits_lse_kernel: one block per pair tile (bf16: 16 frames
 //      x 8 labels = 128 pairs; f32: 8 x 8 = 64 pairs) of row b. It copies
 //      the tile's x for all of H (128 x 648 bf16 = 162 KB; f32 64 x 644 x
-//      4 = 161 KB) and its mask bytes (10 KB) into shared memory, then
-//      (a) logits in 96-column chunks of V1 (3 at V1 257): the padded
-//      head streams through a 2-stage cp.async ring of 64 x 96 f32 tiles
-//      (26 KB each), each warp owns a 32-pair x 48-column tile (2 x 6 mma
-//      tiles); the chunk's dlogits, from the forward's saved log-sum-exp,
-//      go to the scratch;
+//      4 = 161 KB) into shared memory, then computes the logits in
+//      96-column chunks of V1 (3 at V1 257), as the backward's phase (a)
+//      does (logits_chunk): the padded head streams through a 2-stage
+//      cp.async ring of 64 x 96 f32 tiles (26 KB each), each warp owns a
+//      32-pair x 48-column tile (2 x 6 mma tiles). The epilogue stays in
+//      registers: each lane folds its 12 columns of a row into its own
+//      running (max, sum of exp) across the chunks, columns past V1 left
+//      out, and picks z[blank] and z[label] as they go by; at the end the
+//      quad's four lanes merge by shuffles and the two column warps
+//      through shared memory, and lpb, lpl and lse are written once a
+//      pair. Shared memory 221 KB (bf16) / 219 KB (f32) at H640, which
+//      bounds H at 640: one block an SM, 3,536 blocks at the flagship.
+//   Backward, two launches (four when it forms its own inputs scratch):
+//   1. joint_dlogits_dx_kernel: the same pair tiles. It copies the tile's
+//      x and its mask bytes (10 KB) into shared memory, then
+//      (a) the logits again (logits_chunk), and the chunk's dlogits, from
+//      the forward's saved log-sum-exp, to the dlogits scratch;
 //      (b) the tile's dlogits read back into the shared memory x vacated
 //      ([pairs][V8 + 4]: 135 KB), 16 bytes a load;
 //      (c) d_x in 64-column chunks of H (64 x 64 head tiles through the
@@ -94,21 +108,20 @@
 //      labels and dg a label's frames, one f32 global atomic per value and
 //      tile.
 //      Shared memory 226 KB (bf16) / 219 KB (f32) at H640 V1 257, which
-//      bounds H at 640 in bf16 and V8 at ~320: one block an SM, 3,536
-//      blocks at the flagship.
+//      bounds H at 640 in bf16 and V8 at ~320.
 //   2. joint_dw_db_kernel: dW[b] = x^T . dlogits as a GEMM over K =
-//      T*U1 pairs, x and dlogits read from the scratch by 16-byte
+//      T*U1 pairs, x and dlogits read from the scratches by 16-byte
 //      cp.async through a 3-stage ring of 64 pairs (129 KB bf16). Output
 //      tile 128 rows of H x 88 columns of V1 (11 mma tiles, split and
 //      multiplied 4 at a time; 257 columns are 3 tiles, 264 wide), one
 //      warp per 16 rows of H: 3 x 5 x 16 = 240 blocks, two waves on 132
 //      SMs. The blocks of the first H tile also sum db.
-// The scratch (joint_fused_bwd_scratch words) holds dlogits [B,T,U1][V8]
-// f32 (445 MB at the flagship), x [B,T,U1][HP] in the compute dtype (539
-// MB bf16), the mask bytes (34 MB) and the padded head (11 MB).
-// The TPU kernel carries dW, db and dg across its sequential chunk grid
-// in VMEM; blocks here run in parallel, so dW and db take a second pass
-// over the scratch and df, dg take atomics (their last bits vary from
+// The inputs scratch (joint_fused_scratch words) holds x [B,T,U1][HP] in
+// the compute dtype (539 MB bf16 at the flagship), the mask bytes (34 MB)
+// and the padded head (11 MB); the dlogits scratch [B,T,U1][V8] f32 (445
+// MB). The TPU kernel carries dW, db and dg across its sequential chunk
+// grid in VMEM; blocks here run in parallel, so dW and db take a second
+// pass over the scratch and df, dg take atomics (their last bits vary from
 // run to run). dg is accumulated in f32 and rounded once by the caller
 // (the TPU kernel adds each chunk into a bf16 buffer). Fragments are read
 // from shared memory with 32-bit loads; every staged row is padded so
@@ -117,9 +130,10 @@
 // Left for later: wgmma (asynchronous warpgroup products from shared
 // memory descriptors, the rate mma.sync does not reach), TMA with
 // multicast of a row's head across a cluster (every pair tile of a row
-// reads the same head twice from L2), the forward on the same split
-// scheme sharing the head tile loader, and dW without the scratch (a
-// fourth product, the logits again, inside the dW kernel).
+// reads the same head from L2, once a call in the forward and twice in
+// the backward), the forward's x tile copied while its products run, and
+// dW without the scratch (a fourth product, the logits again, inside the
+// dW kernel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,13 +142,6 @@
 
 namespace {
 
-constexpr int TT = 8;         // frames per pair tile
-constexpr int TU = 8;         // label positions per pair tile
-constexpr int BM = TT * TU;   // pairs per tile
-constexpr int BN = 64;        // columns (V1 or H) per register tile
-constexpr int BK = 32;        // depth staged per step
-constexpr int WS = BN + 4;    // padded row of a staged tile (16-byte rows)
-constexpr int NT = 256;       // threads: 16 x 16, each 4 rows x 4 columns
 constexpr int SMEM_MAX = 232448;  // bytes a block may use on an H100
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
@@ -152,18 +159,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // round an f32 value to the compute dtype and back
 template <typename T> __device__ __forceinline__ float rnd(float x) {
   return to_f<T>(from_f<T>(x));
-}
-
-// four consecutive values of a shared-memory row, as f32
-__device__ __forceinline__ void load4(const float* p, float a[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float a[4]) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 lo = __bfloat1622float2(q[0]);
-  const float2 hi = __bfloat1622float2(q[1]);
-  a[0] = lo.x; a[1] = lo.y; a[2] = hi.x; a[3] = hi.y;
 }
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -196,126 +191,10 @@ struct Drop {
   int on;
 };
 
-// pre = round(f + g) and the joint input x = drop(relu(pre)) of one
-// (t, u, h); ``grad`` is d x / d pre (0, 1 or the dropout scale)
-template <typename T>
-__device__ __forceinline__ float joint_input(const T* __restrict__ f,
-                                             const T* __restrict__ g, int b,
-                                             int t, int u, int h, const Dims& dm,
-                                             const Drop& dr, uint32_t key,
-                                             float* grad) {
-  const float pre = rnd<T>(to_f<T>(f[((size_t)b * dm.T + t) * dm.H + h]) +
-                           to_f<T>(g[((size_t)b * dm.U1 + u) * dm.H + h]));
-  float x = pre > 0.f ? pre : 0.f;
-  float d = pre > 0.f ? 1.f : 0.f;
-  if (dr.on) {
-    const bool keep = drop_bits(key, t, u, h, dm.U1, dm.H) <= dr.thr;
-    x = keep ? rnd<T>(x * dr.scale) : 0.f;
-    d = keep ? d * dr.scale : 0.f;
-  }
-  *grad = d;
-  return x;
-}
-
-// the 64 pairs' joint input for all of H, [H][BM] in the compute dtype
-template <typename T>
-__device__ void form_inputs(T* Xs, const T* f, const T* g, int b, int t0, int u0,
-                            const Dims& dm, const Drop& dr, uint32_t key) {
-  for (int idx = threadIdx.x; idx < dm.H * BM; idx += NT) {
-    const int h = idx / BM, p = idx % BM;
-    const int t = t0 + p / TU, u = u0 + p % TU;
-    float x = 0.f, d;
-    if (t < dm.T && u < dm.U1) x = joint_input<T>(f, g, b, t, u, h, dm, dr, key, &d);
-    Xs[idx] = from_f<T>(x);
-  }
-}
-
-// acc[i][j] = sum_h Xs[h][ty*4+i] * W[b, h, c0+tx*4+j] over all of H;
-// columns at or past V1 read W as 0
-template <typename T>
-__device__ void logits_tile(float acc[4][4], const T* Xs, float* Ws,
-                            const float* __restrict__ w, int b, int c0,
-                            const Dims& dm) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < dm.H; k0 += BK) {
-    __syncthreads();  // the previous stage's readers are done
-    for (int idx = threadIdx.x; idx < BK * BN; idx += NT) {
-      const int kk = idx / BN, c = idx % BN;
-      const int k = k0 + kk, v = c0 + c;
-      Ws[kk * WS + c] = (k < dm.H && v < dm.V1) ? w[((size_t)b * dm.H + k) * dm.V1 + v] : 0.f;
-    }
-    __syncthreads();
-    const int kn = dm.H - k0 < BK ? dm.H - k0 : BK;
-    for (int kk = 0; kk < kn; ++kk) {
-      float a[4], wv[4];
-      load4(Xs + (size_t)(k0 + kk) * BM + ty * 4, a);
-      load4(Ws + kk * WS + tx * 4, wv);
-      for (int i = 0; i < 4; ++i)
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], wv[j], acc[i][j]);
-    }
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-joint_fwd_kernel(const T* __restrict__ f, const T* __restrict__ g,
-                 const float* __restrict__ w, const float* __restrict__ bias,
-                 const int* __restrict__ labels, float* __restrict__ lpb,
-                 float* __restrict__ lpl, float* __restrict__ lse_out, Dims dm,
-                 Drop dr, int xs_bytes) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Xs = reinterpret_cast<T*>(smem_raw);
-  float* Ws = reinterpret_cast<float*>(smem_raw + xs_bytes);  // [BK][WS]
-  float* Zs = Ws + BK * WS;                                    // [BM][BN+1]
-  const int b = blockIdx.z, t0 = blockIdx.x * TT, u0 = blockIdx.y * TU;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  form_inputs<T>(Xs, f, g, b, t0, u0, dm, dr, row_key(dr.seed, b));
-
-  // one thread per pair keeps the running max/sum and the two logits
-  const int p = threadIdx.x;
-  const int pt = t0 + p / TU, pu = u0 + p % TU;
-  const bool mine = p < BM && pt < dm.T && pu < dm.U1;
-  const int lab = mine ? labels[(size_t)b * dm.U1 + pu] : -1;
-  float m = -INFINITY, s = 0.f, zb = 0.f, zl = 0.f;
-
-  for (int c0 = 0; c0 < dm.V1; c0 += BN) {
-    float acc[4][4];
-    logits_tile<T>(acc, Xs, Ws, w, b, c0, dm);
-    for (int i = 0; i < 4; ++i)
-      for (int j = 0; j < 4; ++j) Zs[(ty * 4 + i) * (BN + 1) + tx * 4 + j] = acc[i][j];
-    __syncthreads();
-    if (mine) {
-      const int cn = dm.V1 - c0 < BN ? dm.V1 - c0 : BN;
-      for (int c = 0; c < cn; ++c) {
-        const int v = c0 + c;
-        const float z = Zs[p * (BN + 1) + c] + bias[(size_t)b * dm.V1 + v];
-        if (v == dm.blank) zb = z;
-        if (v == lab) zl = z;
-        if (z > m) {
-          s = s * expf(m - z) + 1.f;
-          m = z;
-        } else {
-          s += expf(z - m);
-        }
-      }
-    }
-    __syncthreads();  // Zs is rewritten by the next tile
-  }
-  if (mine) {
-    const float l = m + logf(s);
-    const size_t o = ((size_t)b * dm.T + pt) * dm.U1 + pu;
-    lpb[o] = zb - l;
-    lpl[o] = zl - l;
-    lse_out[o] = l;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Backward on the tensor cores: mma.sync m16n8k8 TF32 with split operands.
+// The tensor-core parts: mma.sync m16n8k8 TF32 with split operands.
 
-namespace bwd {
+namespace tc {
 
 constexpr int THREADS = 256;  // 8 warps
 constexpr int LABELS = 8;     // label positions per pair tile
@@ -327,6 +206,7 @@ constexpr int WSTAGE = KT * (CA + 8);  // floats a head stage: [64][104] or [64]
 static_assert(CN * (KT + 4) <= WSTAGE, "a (c) head tile fits a stage");
 static_assert(NSTAGE * WSTAGE >= 128 * (CN + 8), "the ring holds a d_x tile");
 constexpr int PROMOTE = 16;   // k-steps of an mma chain before its f32 add
+constexpr int FWD_CHAIN = 2;  // the same in kernel F's logits
 // kernel 2
 constexpr int BH = 128;       // rows of H per block, 16 a warp
 constexpr int NB = 11;        // mma tiles of 8 columns of V1 per block
@@ -343,30 +223,27 @@ template <typename T> struct DwStage {
   static constexpr int BYTES = XBYTES + KP * GSD * 4;
 };
 
-// The scratch, in 4-byte words: dlogits [B,T,U1][V8] f32 (rows padded
-// with zeros to a multiple of 8 columns, 16-byte aligned); the joint input
-// x [B,T,U1][HP] in the compute dtype (HP = H rounded up to 8,
-// zero-padded) and its relu'*keep bits [B,T,U1][MB] bytes (a bit per
-// column, MB = HP/8 rounded up to 16), both formed once by
-// joint_form_kernel; and the head [B,H][V8] f32 with its rows padded
-// likewise, which the head tiles are copied from 16 bytes at a time.
+// The inputs scratch, in 4-byte words: the joint input x [B,T,U1][HP] in
+// the compute dtype (HP = H rounded up to 8, zero-padded) and its
+// relu'*keep bits [B,T,U1][MB] bytes (a bit per column, MB = HP/8 rounded
+// up to 16), both formed once by joint_form_kernel; then the head
+// [B,H][V8] f32 with its rows padded with zeros to a multiple of 8
+// columns, which the head tiles are copied from 16 bytes at a time. The
+// backward's dlogits scratch is [B,T,U1][V8] f32, its rows padded likewise.
 __host__ __device__ inline int pad8(int n) { return (n + 7) / 8 * 8; }
 
 __host__ __device__ inline int mask_bytes(int H) { return (pad8(H) / 8 + 15) / 16 * 16; }
-__host__ __device__ inline size_t scratch_x(int B, int T_, int U1, int V1) {
-  return (size_t)B * T_ * U1 * pad8(V1);
+template <typename T>
+__host__ __device__ inline size_t inputs_mask(int B, int T_, int U1, int H) {
+  return (size_t)B * T_ * U1 * pad8(H) * sizeof(T) / 4;
 }
 template <typename T>
-__host__ __device__ inline size_t scratch_mask(int B, int T_, int U1, int H, int V1) {
-  return scratch_x(B, T_, U1, V1) + (size_t)B * T_ * U1 * pad8(H) * sizeof(T) / 4;
+__host__ __device__ inline size_t inputs_head(int B, int T_, int U1, int H) {
+  return inputs_mask<T>(B, T_, U1, H) + (size_t)B * T_ * U1 * mask_bytes(H) / 4;
 }
 template <typename T>
-__host__ __device__ inline size_t scratch_head(int B, int T_, int U1, int H, int V1) {
-  return scratch_mask<T>(B, T_, U1, H, V1) + (size_t)B * T_ * U1 * mask_bytes(H) / 4;
-}
-template <typename T>
-__host__ __device__ inline size_t scratch_words(int B, int T_, int U1, int H, int V1) {
-  return scratch_head<T>(B, T_, U1, H, V1) + (size_t)B * H * pad8(V1);
+__host__ __device__ inline size_t inputs_words(int B, int T_, int U1, int H, int V1) {
+  return inputs_head<T>(B, T_, U1, H) + (size_t)B * H * pad8(V1);
 }
 
 // pairs per tile: 16 frames x 8 labels in bf16, 8 x 8 in f32, where the
@@ -377,14 +254,16 @@ template <typename T> struct Tile {
   static constexpr int MI = BM / 64;  // m16 tiles a warp: 4 warps along the pairs
 };
 
-// shared-memory layout of kernel 1 (bytes), on the host and the card
+// shared-memory layouts of kernels F and 1 (bytes), on the host and the card
 struct Layout {
   int hp;      // H rounded up to the staged depth
   int xs;      // row stride of the x tile (elements)
-  int gs;      // row stride of the dlogits tile (floats)
-  int region;  // x tile, then dlogits tile
-  int masks;   // relu'*keep bits [BM][mask_bytes(H)]
-  int total;
+  int xbytes;  // the x tile [BM][xs]
+  int gs;      // row stride of kernel 1's dlogits tile (floats)
+  int region;  // kernel 1: the x tile, then the dlogits tile
+  int masks;   // kernel 1: relu'*keep bits [BM][mask_bytes(H)]
+  int total;   // kernel 1
+  int fwd;     // kernel F: the x tile, the head ring, four floats a pair
 };
 
 template <typename T>
@@ -393,21 +272,27 @@ __host__ __device__ inline Layout layout(int H, int V1) {
   Layout L;
   L.hp = (H + KT - 1) / KT * KT;
   L.xs = L.hp + 16 / (int)sizeof(T);
+  L.xbytes = (BM * L.xs * (int)sizeof(T) + 15) / 16 * 16;
   L.gs = pad8(V1) + 4;
-  const int xs_bytes = BM * L.xs * (int)sizeof(T), gs_bytes = BM * L.gs * 4;
-  L.region = ((xs_bytes > gs_bytes ? xs_bytes : gs_bytes) + 15) / 16 * 16;
+  const int gs_bytes = BM * L.gs * 4;
+  L.region = L.xbytes > gs_bytes ? L.xbytes : gs_bytes;
   L.masks = BM * mask_bytes(H);
   L.total = L.region + L.masks + NSTAGE * WSTAGE * 4 + 4 * BM * 4;
+  L.fwd = L.xbytes + NSTAGE * WSTAGE * 4 + 4 * BM * 4;
   return L;
 }
 
 // a = big + small. The tensor cores read the 19 high bits of a TF32
 // operand and ignore the 13 low ones, so big is a itself, read as
 // tf32(a) rounded toward zero, and small = a - tf32(a), exact in f32, of
-// which they read the high bits too. Two full-rate operations.
+// which they read the high bits too. Two full-rate operations; with RN a
+// third, half a TF32 step added to small's magnitude bits, so that the
+// tensor cores read small rounded to nearest and not toward zero.
+template <bool RN = false>
 __device__ __forceinline__ void split(float a, uint32_t& big, uint32_t& small) {
   big = __float_as_uint(a);
   small = __float_as_uint(a - __uint_as_float(big & 0xFFFFE000u));
+  if (RN) small += 0x1000u;
 }
 
 __device__ __forceinline__ void mma(float c[4], const uint32_t a[4], const uint32_t b[2]) {
@@ -445,18 +330,19 @@ __device__ __forceinline__ void mma_passes(float acc[MI][NI][4], const uint32_t 
 }
 
 // the A fragment's four values (rows r, r+8; columns k, k+4), split
-template <bool S>
+template <bool S, bool RN = false>
 __device__ __forceinline__ void frag_a(const float v[4], uint32_t big[4], uint32_t small[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    if (S) split(v[i], big[i], small[i]);
+    if (S) split<RN>(v[i], big[i], small[i]);
     else big[i] = __float_as_uint(v[i]);
   }
 }
 
+template <bool RN = false>
 __device__ __forceinline__ void frag_b(float v0, float v1, uint32_t big[2], uint32_t small[2]) {
-  split(v0, big[0], small[0]);
-  split(v1, big[1], small[1]);
+  split<RN>(v0, big[0], small[0]);
+  split<RN>(v1, big[1], small[1]);
 }
 
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -525,21 +411,104 @@ __device__ __forceinline__ float joint_x(float fv, float gv, int t, int u, int h
   return x;
 }
 
-}  // namespace bwd
+// The logits of one chunk of CA columns of V1 from c0, without the bias,
+// into the f32 totals of the warp's MI x 6 mma tiles (pair rows rw..,
+// columns c0 + wn*48..): the row's padded head wb [H][V8] streams through
+// the ring Ws in KT x CA tiles, the x tile Xs [BM][xs] stays in shared
+// memory. Kernels F and 1 both take their logits from here: kernel 1
+// (FWD false) with chains of PROMOTE k-steps and small parts read
+// truncated, kernel F with chains of FWD_CHAIN k-steps and small parts
+// read rounded (see "Precision" above).
+template <typename T, bool FWD>
+__device__ __forceinline__ void logits_chunk(float (&tot)[Tile<T>::MI][6][4], const T* Xs,
+                                             const Layout& L, float* Ws, const float* wb,
+                                             int c0, const Dims& dm, int rw, int wn, int gq,
+                                             int tq) {
+  constexpr int MI = Tile<T>::MI;
+  constexpr bool SX = sizeof(T) == 4;  // an f32 x needs its small part
+  float acc[MI][6][4] = {};
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 6; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[mi][ni][e] = 0.f;
+  const int nk = L.hp / KT;
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < nk) load_head_a(Ws + s * WSTAGE, wb, s, c0, dm);
+    cp_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_wait<NSTAGE - 2>();
+    __syncthreads();  // tile kt landed; every warp is done with tile kt-1
+    if (kt + NSTAGE - 1 < nk)
+      load_head_a(Ws + (kt + NSTAGE - 1) % NSTAGE * WSTAGE, wb, kt + NSTAGE - 1, c0, dm);
+    cp_commit();
+    const float* Wt = Ws + kt % NSTAGE * WSTAGE;
+#pragma unroll
+    for (int ks = 0; ks < KT / 8; ++ks) {
+      const int k = kt * KT + ks * 8 + tq;
+      uint32_t ab[MI][4], as[MI][4], bb[6][2], bs[6][2];
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi) {
+        const T* x0 = Xs + (rw + mi * 16 + gq) * L.xs + k;
+        const T* x8 = x0 + 8 * L.xs;
+        const float v[4] = {to_f<T>(x0[0]), to_f<T>(x8[0]), to_f<T>(x0[4]), to_f<T>(x8[4])};
+        frag_a<SX, FWD>(v, ab[mi], as[mi]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 6; ++ni) {
+        const float* w0 = Wt + (ks * 8 + tq) * (CA + 8) + wn * 48 + ni * 8 + gq;
+        frag_b<FWD>(w0[0], w0[4 * (CA + 8)], bb[ni], bs[ni]);
+      }
+      mma_passes<MI, 6, SX, true>(acc, ab, as, bb, bs);
+      if (FWD && (ks + 1) % FWD_CHAIN == 0) promote<MI, 6>(tot, acc);
+    }
+    if (!FWD && (kt + 1) % (PROMOTE / (KT / 8)) == 0) promote<MI, 6>(tot, acc);
+  }
+  __syncthreads();  // the ring is free for the next walk
+  promote<MI, 6>(tot, acc);
+}
+
+// fold the log-sum-exp state (m2, s2) into (m, s): sum = s * e^m
+__device__ __forceinline__ void lse_merge(float& m, float& s, float m2, float s2) {
+  const float mn = fmaxf(m, m2);
+  if (mn == -INFINITY) return;  // both empty
+  s = s * expf(m - mn) + s2 * expf(m2 - mn);
+  m = mn;
+}
+
+// The tile's x (zero past H and past the row's pairs) from the inputs
+// scratch into Xs [BM][xs], 16 bytes a copy; the caller commits.
+template <typename T>
+__device__ __forceinline__ void load_x_tile(T* Xs, const T* xg, const Layout& L, int b,
+                                            int t0, int u0, const Dims& dm) {
+  constexpr int BM = Tile<T>::BM, EPC = 16 / (int)sizeof(T);
+  const int xcr = L.hp / EPC, HP = pad8(dm.H);
+  for (int i = threadIdx.x; i < BM * xcr; i += THREADS) {
+    const int p = i / xcr, c = i % xcr, t = t0 + p / LABELS, u = u0 + p % LABELS;
+    const size_t row = ((size_t)b * dm.T + t) * dm.U1 + u;
+    const bool ok = t < dm.T && u < dm.U1 && c * EPC < HP;
+    cp16(Xs + p * L.xs + c * EPC, ok ? xg + row * HP + c * EPC : xg, ok);
+  }
+}
+
+}  // namespace tc
 
 // Kernel 0: the joint input x and its relu'*keep bits for every pair, into
-// the scratch, formed once for kernels 1 and 2; a thread forms 8
+// the inputs scratch, formed once for kernels F, 1 and 2; a thread forms 8
 // consecutive columns of one pair (16 bytes of bf16 x, one mask byte).
 // Many small blocks an SM hide the loads behind the hash's integer work.
 template <typename T>
-__global__ void __launch_bounds__(bwd::THREADS)
-joint_form_kernel(const T* __restrict__ f, const T* __restrict__ g, float* __restrict__ scratch,
+__global__ void __launch_bounds__(tc::THREADS)
+joint_form_kernel(const T* __restrict__ f, const T* __restrict__ g, float* __restrict__ inputs,
                   int B, Dims dm, Drop dr) {
-  using namespace bwd;
+  using namespace tc;
   const int HP = pad8(dm.H), MB = mask_bytes(dm.H), CH = HP / 8;
-  T* xg = reinterpret_cast<T*>(scratch + scratch_x(B, dm.T, dm.U1, dm.V1));
-  unsigned char* mg = reinterpret_cast<unsigned char*>(
-      scratch + scratch_mask<T>(B, dm.T, dm.U1, dm.H, dm.V1));
+  T* xg = reinterpret_cast<T*>(inputs);
+  unsigned char* mg =
+      reinterpret_cast<unsigned char*>(inputs + inputs_mask<T>(B, dm.T, dm.U1, dm.H));
   const size_t n = (size_t)B * dm.T * dm.U1 * CH;
   for (size_t i = blockIdx.x * (size_t)THREADS + threadIdx.x; i < n;
        i += (size_t)gridDim.x * THREADS) {
@@ -585,18 +554,145 @@ joint_form_kernel(const T* __restrict__ f, const T* __restrict__ g, float* __res
   }
 }
 
+// Kernel F: per pair tile, the logits on the tensor cores (logits_chunk)
+// and an online log-sum-exp in registers; lpb, lpl and lse written once a
+// pair.
+template <typename T>
+__global__ void __launch_bounds__(tc::THREADS, 1)
+joint_logits_lse_kernel(const float* __restrict__ inputs, const float* __restrict__ bias,
+                        const int* __restrict__ labels, float* __restrict__ lpb,
+                        float* __restrict__ lpl, float* __restrict__ lse, Dims dm) {
+  using namespace tc;
+  constexpr int BM = Tile<T>::BM, TT = Tile<T>::TT, MI = Tile<T>::MI;
+  const Layout L = layout<T>(dm.H, dm.V1);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Xs = reinterpret_cast<T*>(smem_raw);  // [BM][xs]
+  float* Ws = reinterpret_cast<float*>(smem_raw + L.xbytes);
+  float* Pm = Ws + NSTAGE * WSTAGE;  // per pair: the second column warp's max
+  float* Ps = Pm + BM;               // and sum; z[blank]; z[label]
+  float* Zb = Ps + BM;
+  float* Zl = Zb + BM;
+
+  const int B = gridDim.z, b = blockIdx.z, t0 = blockIdx.x * TT, u0 = blockIdx.y * LABELS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gq = lane / 4, tq = lane % 4;
+  const int wm = warp % 4, wn = warp / 4;  // 4 warps along the pairs, 2 along columns
+  const int rw = wm * 16 * MI;             // the warp's first pair row
+  load_x_tile<T>(Xs, reinterpret_cast<const T*>(inputs), L, b, t0, u0, dm);
+  cp_commit();
+  // a label outside [0, V1) reads as logit 0: no column matches it
+  for (int p = threadIdx.x; p < BM; p += THREADS) Zl[p] = 0.f;
+  // every row of this lane is label position u0 + gq (rw is a multiple of 8)
+  const int lab = u0 + gq < dm.U1 ? labels[(size_t)b * dm.U1 + u0 + gq] : -1;
+  const float* brow = bias + (size_t)b * dm.V1;
+  const float* wb = inputs + inputs_head<T>(B, dm.T, dm.U1, dm.H) +
+                    (size_t)b * dm.H * pad8(dm.V1);  // the padded head
+  cp_wait<0>();
+  __syncthreads();
+
+  // each lane's own running max and sum of exp over its columns of a row
+  float m[MI][2], s[MI][2];
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      m[mi][half] = -INFINITY;
+      s[mi][half] = 0.f;
+    }
+  for (int c0 = 0; c0 < dm.V1; c0 += CA) {
+    float tot[MI][6][4];
+    logits_chunk<T, true>(tot, Xs, L, Ws, wb, c0, dm, rw, wn, gq, tq);
+    // the lane's 12 columns of each of its rows; columns past V1 (the
+    // head's zero padding) stay out of the sum
+    float bv[6][2];
+    bool ok[6][2];
+#pragma unroll
+    for (int ni = 0; ni < 6; ++ni)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int v = c0 + wn * 48 + ni * 8 + 2 * tq + j;
+        ok[ni][j] = v < dm.V1;
+        bv[ni][j] = ok[ni][j] ? brow[v] : 0.f;
+      }
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rw + mi * 16 + gq + 8 * half;
+        float z[6][2], cm = -INFINITY;
+#pragma unroll
+        for (int ni = 0; ni < 6; ++ni)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int v = c0 + wn * 48 + ni * 8 + 2 * tq + j;
+            z[ni][j] = ok[ni][j] ? tot[mi][ni][2 * half + j] + bv[ni][j] : -INFINITY;
+            cm = fmaxf(cm, z[ni][j]);
+            if (ok[ni][j] && v == dm.blank) Zb[r] = z[ni][j];
+            if (ok[ni][j] && v == lab) Zl[r] = z[ni][j];
+          }
+        if (cm == -INFINITY) continue;  // no column of this lane left in V1
+        float& mm = m[mi][half];
+        float& ss = s[mi][half];
+        if (cm > mm) {
+          ss *= expf(mm - cm);
+          mm = cm;
+        }
+#pragma unroll
+        for (int ni = 0; ni < 6; ++ni)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) ss += expf(z[ni][j] - mm);
+      }
+  }
+  // the quad's four lanes hold the same rows, the two column warps the two
+  // halves of every chunk
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        const float m2 = __shfl_xor_sync(0xFFFFFFFFu, m[mi][half], o);
+        const float s2 = __shfl_xor_sync(0xFFFFFFFFu, s[mi][half], o);
+        lse_merge(m[mi][half], s[mi][half], m2, s2);
+      }
+  if (wn == 1 && tq == 0)
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rw + mi * 16 + gq + 8 * half;
+        Pm[r] = m[mi][half];
+        Ps[r] = s[mi][half];
+      }
+  __syncthreads();
+  if (wn == 0 && tq == 0)
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = rw + mi * 16 + gq + 8 * half;
+        const int t = t0 + r / LABELS, u = u0 + r % LABELS;
+        if (t >= dm.T || u >= dm.U1) continue;
+        lse_merge(m[mi][half], s[mi][half], Pm[r], Ps[r]);
+        const float l = m[mi][half] + logf(s[mi][half]);
+        const size_t o = ((size_t)b * dm.T + t) * dm.U1 + u;
+        lpb[o] = Zb[r] - l;
+        lpl[o] = Zl[r] - l;
+        lse[o] = l;
+      }
+}
+
 // Kernel 1: per pair tile, the logits again, dlogits to the scratch, then
 // d_x = dlogits . W^T masked and reduced into df and dg.
 template <typename T>
-__global__ void __launch_bounds__(bwd::THREADS, 1)
-joint_dlogits_dx_kernel(const float* __restrict__ bias, const int* __restrict__ labels,
-                        const float* __restrict__ lse, const float* __restrict__ dlpb,
-                        const float* __restrict__ dlpl, float* __restrict__ dlogits,
-                        float* __restrict__ df, float* __restrict__ dg, Dims dm, Drop dr) {
-  using namespace bwd;
+__global__ void __launch_bounds__(tc::THREADS, 1)
+joint_dlogits_dx_kernel(const float* __restrict__ inputs, const float* __restrict__ bias,
+                        const int* __restrict__ labels, const float* __restrict__ lse,
+                        const float* __restrict__ dlpb, const float* __restrict__ dlpl,
+                        float* __restrict__ dlogits, float* __restrict__ df,
+                        float* __restrict__ dg, Dims dm, float gscale) {
+  using namespace tc;
   constexpr int BM = Tile<T>::BM, TT = Tile<T>::TT, MI = Tile<T>::MI;
-  constexpr bool SX = sizeof(T) == 4;  // an f32 x needs its small part
-  constexpr int EPC = 16 / (int)sizeof(T);  // elements a 16-byte copy
   const Layout L = layout<T>(dm.H, dm.V1);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Xs = reinterpret_cast<T*>(smem_raw);          // [BM][xs]
@@ -608,26 +704,19 @@ joint_dlogits_dx_kernel(const float* __restrict__ bias, const int* __restrict__ 
   float* Pc = Pb + BM;
   int* Pk = reinterpret_cast<int*>(Pc + BM);
 
-  const int b = blockIdx.z, t0 = blockIdx.x * TT, u0 = blockIdx.y * LABELS;
+  const int B = gridDim.z, b = blockIdx.z, t0 = blockIdx.x * TT, u0 = blockIdx.y * LABELS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gq = lane / 4, tq = lane % 4;
   const int wm = warp % 4, wn = warp / 4;  // 4 warps along the pairs, 2 along columns
   const int rw = wm * 16 * MI;             // the warp's first pair row
   const int V8 = pad8(dm.V1), HP = pad8(dm.H), MB = mask_bytes(dm.H);
 
-  // the tile's x (zero past H and past the row's pairs) and mask bits,
-  // formed by joint_form_kernel, 16 bytes a copy
+  // the tile's x and mask bits, formed by joint_form_kernel
+  load_x_tile<T>(Xs, reinterpret_cast<const T*>(inputs), L, b, t0, u0, dm);
   {
-    const int B = gridDim.z, xcr = L.hp / EPC, mcr = MB / 16;
-    const T* xg = reinterpret_cast<const T*>(dlogits + scratch_x(B, dm.T, dm.U1, dm.V1));
-    const unsigned char* mg = reinterpret_cast<const unsigned char*>(
-        dlogits + scratch_mask<T>(B, dm.T, dm.U1, dm.H, dm.V1));
-    for (int i = threadIdx.x; i < BM * xcr; i += THREADS) {
-      const int p = i / xcr, c = i % xcr, t = t0 + p / LABELS, u = u0 + p % LABELS;
-      const size_t row = ((size_t)b * dm.T + t) * dm.U1 + u;
-      const bool ok = t < dm.T && u < dm.U1 && c * EPC < HP;
-      cp16(Xs + p * L.xs + c * EPC, ok ? xg + row * HP + c * EPC : xg, ok);
-    }
+    const int mcr = MB / 16;
+    const unsigned char* mg =
+        reinterpret_cast<const unsigned char*>(inputs + inputs_mask<T>(B, dm.T, dm.U1, dm.H));
     for (int i = threadIdx.x; i < BM * mcr; i += THREADS) {
       const int p = i / mcr, c = i % mcr, t = t0 + p / LABELS, u = u0 + p % LABELS;
       const size_t row = ((size_t)b * dm.T + t) * dm.U1 + u;
@@ -649,45 +738,11 @@ joint_dlogits_dx_kernel(const float* __restrict__ bias, const int* __restrict__ 
   __syncthreads();
 
   // (a) logits in chunks of CA columns of V1, dlogits to the scratch
-  const float* wb = dlogits + scratch_head<T>(gridDim.z, dm.T, dm.U1, dm.H, dm.V1) +
+  const float* wb = inputs + inputs_head<T>(B, dm.T, dm.U1, dm.H) +
                     (size_t)b * dm.H * V8;  // the padded head
   for (int c0 = 0; c0 < dm.V1; c0 += CA) {
-    float acc[MI][6][4] = {}, tot[MI][6][4] = {};
-    const int nk = L.hp / KT;
-#pragma unroll
-    for (int s = 0; s < NSTAGE - 1; ++s) {
-      if (s < nk) load_head_a(Ws + s * WSTAGE, wb, s, c0, dm);
-      cp_commit();
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-      cp_wait<NSTAGE - 2>();
-      __syncthreads();  // tile kt landed; every warp is done with tile kt-1
-      if (kt + NSTAGE - 1 < nk)
-        load_head_a(Ws + (kt + NSTAGE - 1) % NSTAGE * WSTAGE, wb, kt + NSTAGE - 1, c0, dm);
-      cp_commit();
-      const float* Wt = Ws + kt % NSTAGE * WSTAGE;
-#pragma unroll
-      for (int ks = 0; ks < KT / 8; ++ks) {
-        const int k = kt * KT + ks * 8 + tq;
-        uint32_t ab[MI][4], as[MI][4], bb[6][2], bs[6][2];
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          const T* x0 = Xs + (rw + mi * 16 + gq) * L.xs + k;
-          const T* x8 = x0 + 8 * L.xs;
-          const float v[4] = {to_f<T>(x0[0]), to_f<T>(x8[0]), to_f<T>(x0[4]), to_f<T>(x8[4])};
-          frag_a<SX>(v, ab[mi], as[mi]);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 6; ++ni) {
-          const float* w0 = Wt + (ks * 8 + tq) * (CA + 8) + wn * 48 + ni * 8 + gq;
-          frag_b(w0[0], w0[4 * (CA + 8)], bb[ni], bs[ni]);
-        }
-        mma_passes<MI, 6, SX, true>(acc, ab, as, bb, bs);
-      }
-      if ((kt + 1) % (PROMOTE / (KT / 8)) == 0) promote<MI, 6>(tot, acc);
-    }
-    __syncthreads();  // the ring is free for the next walk
-    promote<MI, 6>(tot, acc);
+    float tot[MI][6][4];
+    logits_chunk<T, false>(tot, Xs, L, Ws, wb, c0, dm, rw, wn, gq, tq);
 #pragma unroll
     for (int mi = 0; mi < MI; ++mi)
 #pragma unroll
@@ -738,7 +793,6 @@ joint_dlogits_dx_kernel(const float* __restrict__ bias, const int* __restrict__ 
   __syncthreads();
 
   // (c) d_x = dlogits . W^T in chunks of CN columns of H, reduced to df, dg
-  const float gscale = dr.on ? dr.scale : 1.f;
   for (int h0 = 0; h0 < dm.H; h0 += CN) {
     float acc[MI][4][4] = {}, tot[MI][4][4] = {};
     const int nk = (dm.V1 + KT - 1) / KT;
@@ -822,7 +876,7 @@ joint_dlogits_dx_kernel(const float* __restrict__ bias, const int* __restrict__ 
 template <typename T>
 __device__ __forceinline__ void dw_issue(unsigned char* st, const T* xl, const float* gl,
                                          int kt, int h0, int v0, const Dims& dm) {
-  using namespace bwd;
+  using namespace tc;
   constexpr int EPC = 16 / (int)sizeof(T), XC = BH / EPC, GC = NB * 8 / 4;
   const int P = dm.T * dm.U1, HP = pad8(dm.H), V8 = pad8(dm.V1);
   T* X = reinterpret_cast<T*>(st);
@@ -843,10 +897,10 @@ __device__ __forceinline__ void dw_issue(unsigned char* st, const T* xl, const f
 // Kernel 2: dW[b] = x^T . dlogits over the row's T*U1 pairs, 128 rows of H
 // x 88 columns of V1 a block; the first H tile's blocks also sum db.
 template <typename T>
-__global__ void __launch_bounds__(bwd::THREADS)
-joint_dw_db_kernel(const float* __restrict__ dlogits, float* __restrict__ dw,
-                   float* __restrict__ db, Dims dm) {
-  using namespace bwd;
+__global__ void __launch_bounds__(tc::THREADS)
+joint_dw_db_kernel(const float* __restrict__ inputs, const float* __restrict__ dlogits,
+                   float* __restrict__ dw, float* __restrict__ db, Dims dm) {
+  using namespace tc;
   constexpr bool SX = sizeof(T) == 4;
   using S = DwStage<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -855,8 +909,7 @@ joint_dw_db_kernel(const float* __restrict__ dlogits, float* __restrict__ dw,
   const int gq = lane / 4, tq = lane % 4;
   const int P = dm.T * dm.U1, nk = (P + KP - 1) / KP, V8 = pad8(dm.V1);
   const float* gl = dlogits + (size_t)b * P * V8;
-  const T* xl = reinterpret_cast<const T*>(dlogits + (size_t)gridDim.z * P * V8) +
-                (size_t)b * P * pad8(dm.H);
+  const T* xl = reinterpret_cast<const T*>(inputs) + (size_t)b * P * pad8(dm.H);
   const bool bias_thread = blockIdx.y == 0 && threadIdx.x < NB * 8;
   float dbias[4] = {};
 
@@ -921,10 +974,10 @@ joint_dw_db_kernel(const float* __restrict__ dlogits, float* __restrict__ dw,
     db[(size_t)b * dm.V1 + v0 + threadIdx.x] = (dbias[0] + dbias[1]) + (dbias[2] + dbias[3]);
 }
 
-// the head [B*H][V1] into the scratch with its rows padded to V8 by zeros
+// the head [B*H][V1] into the inputs scratch with its rows padded to V8 by zeros
 __global__ void joint_pad_head_kernel(const float* __restrict__ w, float* __restrict__ wp,
                                       int rows, int V1) {
-  const int V8 = bwd::pad8(V1);
+  const int V8 = tc::pad8(V1);
   const size_t n = (size_t)rows * V8;
   for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
        i += (size_t)gridDim.x * blockDim.x) {
@@ -946,119 +999,134 @@ __global__ void joint_bits_kernel(uint32_t seed, int B, Dims dm, uint32_t* bits)
   }
 }
 
-int align16(int n) { return (n + 15) / 16 * 16; }
-
 template <typename T>
 int fwd_smem(const Dims& dm) {
-  return align16(dm.H * BM * (int)sizeof(T)) + BK * WS * 4 + BM * (BN + 1) * 4;
+  return tc::layout<T>(dm.H, dm.V1).fwd;
 }
 
 template <typename T>
 int bwd_smem(const Dims& dm) {
-  const int k1 = bwd::layout<T>(dm.H, dm.V1).total;
-  constexpr int k2 = bwd::DSTAGE * bwd::DwStage<T>::BYTES;
+  const int k1 = tc::layout<T>(dm.H, dm.V1).total;
+  constexpr int k2 = tc::DSTAGE * tc::DwStage<T>::BYTES;
   return k1 > k2 ? k1 : k2;
 }
 
+// kernel 0: the padded head and the joint input with its mask bits
 template <typename T>
-cudaError_t launch_bwd(const void* f, const void* g, const void* w, const void* bias,
-                       const void* labels, const void* lse, const void* dlpb,
-                       const void* dlpl, void* dlogits, void* df, void* dg, void* dw,
-                       void* db, int B, const Dims& dm, const Drop& dr,
-                       cudaStream_t stream) {
-  const int smem = bwd::layout<T>(dm.H, dm.V1).total;
-  if (bwd_smem<T>(dm) > SMEM_MAX) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(joint_dlogits_dx_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
+cudaError_t launch_form(const void* f, const void* g, const void* w, float* inputs, int B,
+                        const Dims& dm, const Drop& dr, cudaStream_t stream) {
   joint_pad_head_kernel<<<264, 256, 0, stream>>>(
-      (const float*)w,
-      (float*)dlogits + bwd::scratch_head<T>(B, dm.T, dm.U1, dm.H, dm.V1),
-      B * dm.H, dm.V1);
-  e = cudaGetLastError();
+      (const float*)w, inputs + tc::inputs_head<T>(B, dm.T, dm.U1, dm.H), B * dm.H, dm.V1);
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  joint_form_kernel<T><<<132 * 8, bwd::THREADS, 0, stream>>>((const T*)f, (const T*)g,
-                                                             (float*)dlogits, B, dm, dr);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  constexpr int TT = bwd::Tile<T>::TT;
-  const dim3 grid((dm.T + TT - 1) / TT, (dm.U1 + bwd::LABELS - 1) / bwd::LABELS, B);
-  joint_dlogits_dx_kernel<T><<<grid, bwd::THREADS, smem, stream>>>(
-      (const float*)bias, (const int*)labels, (const float*)lse, (const float*)dlpb,
-      (const float*)dlpl, (float*)dlogits, (float*)df, (float*)dg, dm, dr);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  constexpr int smem2 = bwd::DSTAGE * bwd::DwStage<T>::BYTES;
-  e = cudaFuncSetAttribute(joint_dw_db_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem2);
-  if (e != cudaSuccess) return e;
-  const dim3 grid2(((dm.V1 + 7) / 8 + bwd::NB - 1) / bwd::NB, (dm.H + bwd::BH - 1) / bwd::BH, B);
-  joint_dw_db_kernel<T><<<grid2, bwd::THREADS, smem2, stream>>>(
-      (const float*)dlogits, (float*)dw, (float*)db, dm);
+  joint_form_kernel<T><<<132 * 8, tc::THREADS, 0, stream>>>((const T*)f, (const T*)g, inputs,
+                                                            B, dm, dr);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_fwd(const void* f, const void* g, const void* w, const void* bias,
-                       const void* labels, void* lpb, void* lpl, void* lse, int B,
-                       const Dims& dm, const Drop& dr, cudaStream_t stream) {
+cudaError_t launch_fwd(const float* inputs, const void* bias, const void* labels, void* lpb,
+                       void* lpl, void* lse, int B, const Dims& dm, cudaStream_t stream) {
   const int smem = fwd_smem<T>(dm);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(joint_fwd_kernel<T>,
+  const cudaError_t e = cudaFuncSetAttribute(joint_logits_lse_kernel<T>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  constexpr int TT = tc::Tile<T>::TT;
+  const dim3 grid((dm.T + TT - 1) / TT, (dm.U1 + tc::LABELS - 1) / tc::LABELS, B);
+  joint_logits_lse_kernel<T><<<grid, tc::THREADS, smem, stream>>>(
+      inputs, (const float*)bias, (const int*)labels, (float*)lpb, (float*)lpl, (float*)lse, dm);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const float* inputs, const void* bias, const void* labels,
+                       const void* lse, const void* dlpb, const void* dlpl, float* dlogits,
+                       void* df, void* dg, void* dw, void* db, int B, const Dims& dm,
+                       float gscale, cudaStream_t stream) {
+  const int smem = tc::layout<T>(dm.H, dm.V1).total;
+  if (bwd_smem<T>(dm) > SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(joint_dlogits_dx_kernel<T>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((dm.T + TT - 1) / TT, (dm.U1 + TU - 1) / TU, B);
-  joint_fwd_kernel<T><<<grid, NT, smem, stream>>>(
-      (const T*)f, (const T*)g, (const float*)w, (const float*)bias, (const int*)labels,
-      (float*)lpb, (float*)lpl, (float*)lse, dm, dr, align16(dm.H * BM * (int)sizeof(T)));
+  constexpr int TT = tc::Tile<T>::TT;
+  const dim3 grid((dm.T + TT - 1) / TT, (dm.U1 + tc::LABELS - 1) / tc::LABELS, B);
+  joint_dlogits_dx_kernel<T><<<grid, tc::THREADS, smem, stream>>>(
+      inputs, (const float*)bias, (const int*)labels, (const float*)lse, (const float*)dlpb,
+      (const float*)dlpl, dlogits, (float*)df, (float*)dg, dm, gscale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  constexpr int smem2 = tc::DSTAGE * tc::DwStage<T>::BYTES;
+  e = cudaFuncSetAttribute(joint_dw_db_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem2);
+  if (e != cudaSuccess) return e;
+  const dim3 grid2(((dm.V1 + 7) / 8 + tc::NB - 1) / tc::NB, (dm.H + tc::BH - 1) / tc::BH, B);
+  joint_dw_db_kernel<T><<<grid2, tc::THREADS, smem2, stream>>>(inputs, dlogits, (float*)dw,
+                                                               (float*)db, dm);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (f and g; the head is float32)
-extern "C" int joint_fused_fwd(const void* f, const void* g, const void* w,
-                               const void* bias, const void* labels, void* lpb,
-                               void* lpl, void* lse, int B, int T, int U1, int H,
-                               int V1, int blank, unsigned seed, unsigned thr,
-                               float scale, int drop_on, int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16 (f and g; the head is float32).
+// Kernel 0 into ``inputs``, a scratch of joint_fused_scratch(..., 0) words.
+extern "C" int joint_fused_form(const void* f, const void* g, const void* w, void* inputs,
+                                int B, int T, int U1, int H, int V1, unsigned seed,
+                                unsigned thr, float scale, int drop_on, int dtype,
+                                void* stream) {
   if (B == 0 || T == 0 || U1 == 0) return (int)cudaSuccess;
-  const Dims dm{T, U1, H, V1, blank};
+  const Dims dm{T, U1, H, V1, 0};
   const Drop dr{seed, thr, scale, drop_on};
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return (int)launch_fwd<float>(f, g, w, bias, labels, lpb, lpl, lse, B, dm, dr, s);
-  if (dtype == 1)
-    return (int)launch_fwd<__nv_bfloat16>(f, g, w, bias, labels, lpb, lpl, lse, B, dm, dr, s);
+  if (dtype == 0) return (int)launch_form<float>(f, g, w, (float*)inputs, B, dm, dr, s);
+  if (dtype == 1) return (int)launch_form<__nv_bfloat16>(f, g, w, (float*)inputs, B, dm, dr, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// df [B,T,H] and dg [B,U1,H] f32 must be zeroed; dlogits is scratch of
-// joint_fused_bwd_scratch(...) 4-byte words; dw [B,H,V1] and db [B,V1]
-// f32 are written whole
-extern "C" int joint_fused_bwd(const void* f, const void* g, const void* w,
-                               const void* bias, const void* labels, const void* lse,
-                               const void* dlpb, const void* dlpl, void* dlogits,
-                               void* df, void* dg, void* dw, void* db, int B, int T,
-                               int U1, int H, int V1, int blank, unsigned seed,
-                               unsigned thr, float scale, int drop_on, int dtype,
-                               void* stream) {
+// Kernel F on the inputs scratch that joint_fused_form filled: lpb, lpl
+// and lse [B,T,U1] f32
+extern "C" int joint_fused_fwd(const void* inputs, const void* bias, const void* labels,
+                               void* lpb, void* lpl, void* lse, int B, int T, int U1, int H,
+                               int V1, int blank, int dtype, void* stream) {
   if (B == 0 || T == 0 || U1 == 0) return (int)cudaSuccess;
   const Dims dm{T, U1, H, V1, blank};
-  const Drop dr{seed, thr, scale, drop_on};
   cudaStream_t s = (cudaStream_t)stream;
+  const float* in = (const float*)inputs;
+  if (dtype == 0) return (int)launch_fwd<float>(in, bias, labels, lpb, lpl, lse, B, dm, s);
+  if (dtype == 1)
+    return (int)launch_fwd<__nv_bfloat16>(in, bias, labels, lpb, lpl, lse, B, dm, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Kernels 1 and 2 on the inputs scratch that joint_fused_form filled;
+// ``dlogits`` is a scratch of joint_fused_scratch(..., 1) words; df
+// [B,T,H] and dg [B,U1,H] f32 must be zeroed; dw [B,H,V1] and db [B,V1]
+// f32 are written whole; ``scale`` is the dropout's 1/(1-rate)
+extern "C" int joint_fused_bwd(const void* inputs, const void* bias, const void* labels,
+                               const void* lse, const void* dlpb, const void* dlpl,
+                               void* dlogits, void* df, void* dg, void* dw, void* db, int B,
+                               int T, int U1, int H, int V1, int blank, float scale,
+                               int dtype, void* stream) {
+  if (B == 0 || T == 0 || U1 == 0) return (int)cudaSuccess;
+  const Dims dm{T, U1, H, V1, blank};
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* in = (const float*)inputs;
   if (dtype == 0)
-    return (int)launch_bwd<float>(f, g, w, bias, labels, lse, dlpb, dlpl, dlogits, df, dg,
-                                  dw, db, B, dm, dr, s);
+    return (int)launch_bwd<float>(in, bias, labels, lse, dlpb, dlpl, (float*)dlogits, df, dg,
+                                  dw, db, B, dm, scale, s);
   if (dtype == 1)
-    return (int)launch_bwd<__nv_bfloat16>(f, g, w, bias, labels, lse, dlpb, dlpl, dlogits,
-                                          df, dg, dw, db, B, dm, dr, s);
+    return (int)launch_bwd<__nv_bfloat16>(in, bias, labels, lse, dlpb, dlpl, (float*)dlogits,
+                                          df, dg, dw, db, B, dm, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// 4-byte words of the backward's scratch: dlogits, then the joint input
-extern "C" long long joint_fused_bwd_scratch(int B, int T, int U1, int H, int V1, int dtype) {
-  return (long long)(dtype == 0 ? bwd::scratch_words<float>(B, T, U1, H, V1)
-                                : bwd::scratch_words<__nv_bfloat16>(B, T, U1, H, V1));
+// 4-byte words of a scratch: the inputs scratch (x, its mask bits and the
+// padded head; dlogits 0) or the backward's dlogits scratch (dlogits 1)
+extern "C" long long joint_fused_scratch(int B, int T, int U1, int H, int V1, int dtype,
+                                         int dlogits) {
+  if (dlogits) return (long long)B * T * U1 * tc::pad8(V1);
+  return (long long)(dtype == 0 ? tc::inputs_words<float>(B, T, U1, H, V1)
+                                : tc::inputs_words<__nv_bfloat16>(B, T, U1, H, V1));
 }
 
 // shared memory (bytes) the forward and the backward need, for the wrapper's checks
@@ -1080,4 +1148,3 @@ extern "C" int joint_dropout_bits(unsigned seed, int B, int T, int U1, int H, vo
 extern "C" const char* kernel_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
-

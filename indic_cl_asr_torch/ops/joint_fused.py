@@ -26,21 +26,30 @@ bits, so kernel and plain version agree with dropout on.
 The plain version (``joint_slabs_reference``) runs the forward and a
 hand-written backward (the math of ``_fwd_kernel`` and ``_bwd_kernel``)
 in chunks of ``PLAIN_CHUNK`` frames to bound memory. On CUDA tensors
-``joint_slabs`` launches the kernels of ``csrc/joint_fused.cu``: one
-forward kernel a call (scalar f32 FMAs on the CUDA cores), and two
-backward kernels a call (dlogits with d_x, df and dg; then dW and db),
-with a scratch of the f32 dlogits, B·T·(U+1) rows of V+1 rounded up to 8
-(445 MB at the flagship's B16 T204 U+1 129 V+1 257), and the joint input
-x as the first kernel formed it (B·T·(U+1) rows of H rounded up to 8 in
-the compute dtype, 539 MB in bf16), which the dW kernel reads instead of
-forming it again. The forward also keeps each pair's
-log-sum-exp for the backward. The backward's three products (the logits
-again, d_x = dlogits·Wᵀ, dW = xᵀ·dlogits) run on the tensor cores as
-TF32 ``mma.sync`` with split operands (3xTF32: each f32 operand is
-tf32(a) + tf32(a - tf32(a)), three passes, two where the operand is a
-bf16 joint input, exact in TF32), each mma chain added into an f32 total
-every 16 k-steps, so that the backward keeps the plain version's f32
-tolerances; ``TF32_PASSES`` counts the passes for the bound.
+``joint_slabs`` launches the kernels of ``csrc/joint_fused.cu``. The
+forward is three launches a call: the head copied with its rows padded
+to V+1 rounded up to 8, the joint input x and its relu'·keep bits formed
+once for every pair, and the logits with an online log-sum-exp, which
+writes both slabs and each pair's log-sum-exp. The backward is two
+launches (dlogits with d_x, df and dg; then dW and db) on the forward's
+x. Its products (the logits again, d_x = dlogits·Wᵀ, dW = xᵀ·dlogits)
+and the forward's logits run on the tensor cores as TF32 ``mma.sync``
+with split operands (3xTF32: each f32 operand is tf32(a) + tf32(a -
+tf32(a)), three passes, two where the operand is a bf16 joint input,
+exact in TF32), each mma chain added into an f32 total every 16
+k-steps, so that both keep the plain version's f32 tolerances;
+``TF32_PASSES`` counts the passes for the bound.
+
+Memory: the forward's inputs scratch holds x (B·T·(U+1) rows of H
+rounded up to 8 in the compute dtype, 539 MB in bf16 at the flagship's
+B16 T204 U+1 129 H640 V+1 257), its mask bytes (34 MB) and the padded
+head (11 MB). When a graph is recorded (an input needs a gradient and
+grad mode is on), it lives on the autograd context from the forward to
+the backward, which drops it once it has read it; otherwise it is freed
+when the forward returns. The backward allocates the f32 dlogits scratch
+(B·T·(U+1) rows of V+1 rounded up to 8, 445 MB) for the call alone.
+``joint_fused_backward`` called without the forward's scratch forms x
+again with the same two kernels.
 """
 
 from __future__ import annotations
@@ -53,9 +62,10 @@ from . import _build
 from .flash_mhsa import _M32, _fmix32, _mul32, keep_threshold
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# TF32 passes of one pairs x H x V1 product that the backward runs, by the
-# joint input's itemsize: the logits and dW 2 (bf16 x exact) or 3, d_x 3
-TF32_PASSES = {2: 7, 4: 9}
+# TF32 passes of one pairs x H x V1 product, by direction and the joint
+# input's itemsize: the logits and dW 2 (bf16 x exact) or 3, d_x 3; the
+# forward computes the logits, the backward all three
+TF32_PASSES = {"forward": {2: 2, 4: 3}, "backward": {2: 7, 4: 9}}
 PLAIN_CHUNK = 16  # frames per chunk of the plain version
 _SMEM_MAX = 232448
 
@@ -92,9 +102,10 @@ def _chunk_inputs(f_c, g, seed, t0, rate):
 
 
 def _chunk_logits(x, w, bias):
-    """[B, Tc, U1, H] x [B, H, V1] -> f32 logits [B, Tc, U1, V1]."""
+    """[B, Tc, U1, H] x [B, H, V1] -> logits [B, Tc, U1, V1] in the head's
+    dtype: f32 here, f64 where a check evaluates the forward exactly."""
     B, Tc, U1, H = x.shape
-    z = torch.matmul(x.float().reshape(B, Tc * U1, H), w)
+    z = torch.matmul(x.to(w.dtype).reshape(B, Tc * U1, H), w)
     return z.view(B, Tc, U1, -1) + bias[:, None, None, :]
 
 
@@ -187,12 +198,27 @@ def _check_smem(lib, H, V1, dtype_code):
                              f"memory, over the {_SMEM_MAX} B a block may use")
 
 
+def _form_inputs(lib, f, g, w, drop, stream):
+    """Kernel 0 (the padded head; x and its relu'·keep bits) into a new
+    inputs scratch, which it returns."""
+    B, T, H = f.shape
+    U1, V1 = g.shape[1], w.shape[2]
+    inputs = torch.empty(lib.joint_fused_scratch(B, T, U1, H, V1, drop[-1], 0),
+                         dtype=torch.float32, device=f.device)
+    ptr = _build.ptr
+    err = lib.joint_fused_form(ptr(f), ptr(g), ptr(w), ptr(inputs), B, T, U1, H, V1, *drop,
+                               ctypes.c_void_p(stream))
+    _build.check(lib, err, "joint_fused_form")
+    return inputs
+
+
 def joint_fused_forward(f, g, w, bias, labels, seed: int, *, blank: int,
                         dropout_rate: float):
-    """The forward kernel -> (lp_blank, lp_label, lse), each [B, T, U1] f32.
-    CUDA tensors only."""
+    """The forward kernels -> (lp_blank, lp_label, lse), each [B, T, U1]
+    f32, and the inputs scratch that ``joint_fused_backward`` reads. CUDA
+    tensors only."""
     if f.device.type != "cuda":
-        raise ValueError("joint_fused_forward launches the CUDA kernel")
+        raise ValueError("joint_fused_forward launches the CUDA kernels")
     B, T, H = f.shape
     U1, V1 = g.shape[1], w.shape[2]
     drop = _kernel_args(f, dropout_rate, seed)
@@ -200,30 +226,30 @@ def joint_fused_forward(f, g, w, bias, labels, seed: int, *, blank: int,
     w = w.float().contiguous()
     bias = bias.float().contiguous()
     labels = labels.to(torch.int32).contiguous()
-    out = [torch.empty((B, T, U1), dtype=torch.float32, device=f.device) for _ in range(3)]
     lib = _build.load("joint_fused")
     _check_smem(lib, H, V1, drop[-1])
     stream = torch.cuda.current_stream(f.device).cuda_stream
+    inputs = _form_inputs(lib, f, g, w, drop, stream)
+    out = [torch.empty((B, T, U1), dtype=torch.float32, device=f.device) for _ in range(3)]
     ptr = _build.ptr
-    err = lib.joint_fused_fwd(ptr(f), ptr(g), ptr(w), ptr(bias), ptr(labels),
-                              *(ptr(o) for o in out), B, T, U1, H, V1, int(blank),
-                              *drop, ctypes.c_void_p(stream))
+    err = lib.joint_fused_fwd(ptr(inputs), ptr(bias), ptr(labels), *(ptr(o) for o in out),
+                              B, T, U1, H, V1, int(blank), drop[-1], ctypes.c_void_p(stream))
     _build.check(lib, err, "joint_fused_fwd")
     joint_fused_forward.launches += 1
-    return tuple(out)
+    return (*out, inputs)
 
 
 def joint_fused_backward(f, g, w, bias, labels, seed: int, lse, dlpb, dlpl, *,
-                         blank: int, dropout_rate: float):
+                         blank: int, dropout_rate: float, inputs=None):
     """The backward kernels -> (df, dg, dW, db) in the dtypes of f, g,
-    head_w and head_b. CUDA tensors only."""
+    head_w and head_b, on the forward's inputs scratch, or (``inputs``
+    None) on one formed here by the forward's kernel 0. CUDA tensors
+    only."""
     if f.device.type != "cuda":
         raise ValueError("joint_fused_backward launches the CUDA kernels")
     B, T, H = f.shape
     U1, V1 = g.shape[1], w.shape[2]
     drop = _kernel_args(f, dropout_rate, seed)
-    fc, gc = f.contiguous(), g.contiguous()
-    wc = w.float().contiguous()
     bc = bias.float().contiguous()
     lab = labels.to(torch.int32).contiguous()
     dlpb = dlpb.float().contiguous()
@@ -231,18 +257,21 @@ def joint_fused_backward(f, g, w, bias, labels, seed: int, lse, dlpb, dlpl, *,
     f32 = dict(dtype=torch.float32, device=f.device)
     lib = _build.load("joint_fused")
     _check_smem(lib, H, V1, drop[-1])
-    # dlogits, then the joint input as the first kernel formed it
-    scratch = torch.empty(lib.joint_fused_bwd_scratch(B, T, U1, H, V1, drop[-1]), **f32)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    if inputs is None:
+        inputs = _form_inputs(lib, f.contiguous(), g.contiguous(), w.float().contiguous(),
+                              drop, stream)
+    elif inputs.numel() != lib.joint_fused_scratch(B, T, U1, H, V1, drop[-1], 0):
+        raise ValueError("inputs is not the forward's scratch for these shapes")
+    dlogits = torch.empty(lib.joint_fused_scratch(B, T, U1, H, V1, drop[-1], 1), **f32)
     df = torch.zeros((B, T, H), **f32)
     dg = torch.zeros((B, U1, H), **f32)
     dw = torch.empty((B, H, V1), **f32)
     db = torch.empty((B, V1), **f32)
-    stream = torch.cuda.current_stream(f.device).cuda_stream
     ptr = _build.ptr
-    err = lib.joint_fused_bwd(ptr(fc), ptr(gc), ptr(wc), ptr(bc), ptr(lab), ptr(lse),
-                              ptr(dlpb), ptr(dlpl), ptr(scratch), ptr(df), ptr(dg),
-                              ptr(dw), ptr(db), B, T, U1, H, V1, int(blank), *drop,
-                              ctypes.c_void_p(stream))
+    err = lib.joint_fused_bwd(ptr(inputs), ptr(bc), ptr(lab), ptr(lse), ptr(dlpb), ptr(dlpl),
+                              ptr(dlogits), ptr(df), ptr(dg), ptr(dw), ptr(db), B, T, U1, H, V1,
+                              int(blank), drop[2], drop[-1], ctypes.c_void_p(stream))
     _build.check(lib, err, "joint_fused_bwd")
     joint_fused_backward.launches += 1
     return df.to(f.dtype), dg.to(g.dtype), dw.to(w.dtype), db.to(bias.dtype)
@@ -261,24 +290,29 @@ class _JointSlabs(torch.autograd.Function):
         if plain:
             lpb, lpl = _forward_reference(f, g, w.float(), bias.float(), labels, seed,
                                           blank, rate)
-            lse = None
+            lse = inputs = None
         else:
-            lpb, lpl, lse = joint_fused_forward(f, g, w, bias, labels, seed, **kw)
+            lpb, lpl, lse, inputs = joint_fused_forward(f, g, w, bias, labels, seed, **kw)
         ctx.save_for_backward(f, g, w, bias, labels, lse)
         ctx.args = (seed, blank, rate, plain)
+        # the inputs scratch, for the backward; freed with ctx when no graph
+        # is recorded
+        ctx.inputs = inputs
         return lpb, lpl
 
     @staticmethod
     def backward(ctx, dlpb, dlpl):
         f, g, w, bias, labels, lse = ctx.saved_tensors
         seed, blank, rate, plain = ctx.args
+        # read once: a second backward (retain_graph) forms x again
+        inputs, ctx.inputs = ctx.inputs, None
         if plain:
             df, dg, dw, db = _backward_reference(f, g, w.float(), bias.float(), labels,
                                                  seed, blank, rate, dlpb, dlpl)
             grads = (df.to(f.dtype), dg.to(g.dtype), dw.to(w.dtype), db.to(bias.dtype))
         else:
             grads = joint_fused_backward(f, g, w, bias, labels, seed, lse, dlpb, dlpl,
-                                         blank=blank, dropout_rate=rate)
+                                         blank=blank, dropout_rate=rate, inputs=inputs)
         return (*grads, None, None, None, None, None)
 
 
@@ -329,12 +363,14 @@ def joint_dropout_bits_kernel(seed: int, B: int, T: int, U1: int, H: int,
 
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    lib.joint_fused_fwd.argtypes = [vp] * 8 + [i] * 6 + [u, u, f, i, i, vp]
+    lib.joint_fused_form.argtypes = [vp] * 4 + [i] * 5 + [u, u, f, i, i, vp]
+    lib.joint_fused_form.restype = i
+    lib.joint_fused_fwd.argtypes = [vp] * 6 + [i] * 7 + [vp]
     lib.joint_fused_fwd.restype = i
-    lib.joint_fused_bwd.argtypes = [vp] * 13 + [i] * 6 + [u, u, f, i, i, vp]
+    lib.joint_fused_bwd.argtypes = [vp] * 11 + [i] * 6 + [f, i, vp]
     lib.joint_fused_bwd.restype = i
-    lib.joint_fused_bwd_scratch.argtypes = [i] * 6
-    lib.joint_fused_bwd_scratch.restype = ctypes.c_longlong
+    lib.joint_fused_scratch.argtypes = [i] * 7
+    lib.joint_fused_scratch.restype = ctypes.c_longlong
     lib.joint_fused_smem.argtypes = [i, i, i, i]
     lib.joint_fused_smem.restype = i
     lib.joint_dropout_bits.argtypes = [u, i, i, i, i, vp, vp]

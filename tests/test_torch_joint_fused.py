@@ -341,3 +341,130 @@ def test_split_tf32_products_keep_the_f32_tolerances(dtype):
         assert (dw.double() - dw64).abs().max() <= 1e-5 * dw64.abs().max()
         one_pass = _tf32(x[b].T.contiguous()) @ _tf32(dz)
         assert (one_pass.double() - dw64).abs().max() > 1e-5 * dw64.abs().max()
+
+
+def _tf32_rn(a):
+    """``a`` as the tensor cores read it after the forward kernel's RN
+    split adds half a TF32 step to its magnitude bits: rounded to nearest."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _rz(x64):
+    """f64 -> f32 rounded toward zero."""
+    f = x64.float()
+    over = f.double().abs() > x64.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _mma_product(a, b, split_a, fwd):
+    """a [M, K] · b [K, N] as the CUDA kernels' mma chains form it: the
+    operands split into TF32 parts (``a`` only when ``split_a``), every
+    k-step of 8 terms adds the passes small·big, big·small, big·big into
+    an f32 accumulator that the tensor cores truncate toward zero, and at
+    the end of a chain the accumulator is added into an f32 total. The
+    backward (``fwd`` False) runs chains of 16 k-steps and reads the small
+    parts truncated; the forward runs chains of 2 and reads them rounded
+    to nearest."""
+    small = _tf32_rn if fwd else _tf32
+    ab = _tf32(a) if split_a else a
+    asm = small(a - ab) if split_a else None
+    bb = _tf32(b)
+    bs = small(b - bb)
+    total = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    acc = torch.zeros_like(total)
+    for ks in range(a.shape[1] // 8):
+        k = slice(ks * 8, ks * 8 + 8)
+        for x, y in ([(asm, bb)] if split_a else []) + [(ab, bs), (ab, bb)]:
+            acc = _rz(acc.double() + x[:, k].double() @ y[k].double())
+        if (ks + 1) % (2 if fwd else 16) == 0:
+            total, acc = total + acc, torch.zeros_like(acc)
+    return total + acc
+
+
+def _lse_merge(m, s, m2, s2):
+    """The kernel's lse_merge on f32 tensors: fold (m2, s2) into (m, s),
+    where both are empty (-inf) leave them so."""
+    mn = torch.maximum(m, m2)
+    live = mn > -torch.inf
+    safe = torch.where(live, mn, 0.0)
+    merged = s * torch.exp(m - safe) + s2 * torch.exp(m2 - safe)
+    return torch.where(live, mn, m), torch.where(live, merged, s)
+
+
+def _kernel_slabs(x, w, bias, labels, blank, split_x, fwd=True, chunk=96):
+    """(lp_blank, lp_label) [P] as the forward kernel
+    (csrc/joint_fused.cu:joint_logits_lse_kernel) forms them from x [P, H]
+    and one row's head w [H, V1], bias [V1], labels [P]: the logits in
+    chunks of ``chunk`` columns of the zero-padded head as split TF32
+    products on mma chains (``_mma_product``: the forward's scheme, or
+    with ``fwd`` False the backward's); in every chunk each lane (column
+    warp wn, quad lane tq) takes
+    the max of its 12 columns (6 mma tiles x 2) left of V1 and folds them
+    into its own running (max, sum of exp); the quad's lanes merge by
+    xor-shuffles 1 and 2, then the two column warps; all in f32."""
+    P, V1 = x.shape[0], w.shape[1]
+    nch = -(-V1 // chunk)
+    wpad = torch.zeros((w.shape[0], nch * chunk), dtype=torch.float32)
+    wpad[:, :V1] = w
+    z = torch.cat([_mma_product(x, wpad[:, c * chunk:(c + 1) * chunk].contiguous(), split_x,
+                                fwd) for c in range(nch)], 1)
+    col = torch.arange(nch * chunk)
+    z = torch.where(col < V1, z + torch.cat([bias, torch.zeros(nch * chunk - V1)]), -torch.inf)
+    zb = z[:, blank]
+    inside = (labels >= 0) & (labels < V1)
+    zl = torch.where(inside, z.gather(1, labels.clamp(0, V1 - 1)[:, None])[:, 0], 0.0)
+    # columns c of a chunk: wn = c // 48, ni = c % 48 // 8, tq = c % 8 // 2, j = c % 2
+    lanes = z.view(P, nch, 2, 6, 4, 2).permute(0, 2, 4, 1, 3, 5).reshape(P, 2, 4, nch, 12)
+    m = torch.full((P, 2, 4), -torch.inf)
+    s = torch.zeros((P, 2, 4))
+    for c in range(nch):
+        zc = lanes[..., c, :]
+        cm = zc.max(-1).values
+        live = cm > -torch.inf
+        grow = live & (cm > m)
+        s = torch.where(grow, s * torch.exp(m - torch.where(grow, cm, 0.0)), s)
+        m = torch.where(grow, cm, m)
+        for k in range(12):
+            s = torch.where(live, s + torch.exp(zc[..., k] - m), s)
+    for o in (1, 2):
+        partner = torch.arange(4) ^ o
+        m, s = _lse_merge(m, s, m[..., partner], s[..., partner])
+    m, s = _lse_merge(m[:, 0, 0], s[:, 0, 0], m[:, 1, 0], s[:, 1, 0])
+    lse = m + torch.log(s)
+    return zb - lse, zl - lse
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_forward_kernel_epilogue_keeps_the_slab_tolerance(dtype):
+    """The CUDA forward's arithmetic (split TF32 logits in 96-column
+    chunks on truncating mma accumulators, chains of 2 k-steps, small
+    parts read rounded; per-lane online log-sum-exp merged across lanes,
+    warps and chunks, the head's zero padding past V+1 left out) emulated
+    on the CPU at the flagship widths (H640, V+1 257; 16 frames x U+1 129
+    pairs of two rows, one label outside the head): both slabs within
+    atol 1e-5 of f64 log-softmax slabs, the bar the kernel is held to on
+    the card. With the backward's chains (all passes for 16 k-steps,
+    small parts truncated) the truncation drifts the f32 slabs past the
+    bar, which is why the forward's chains are shorter."""
+    rng = np.random.default_rng(22)
+    B, Tc, U1, H, V1 = 2, 16, 129, 640, 257
+    tdt = getattr(torch, dtype)
+    f = torch.from_numpy((0.5 * rng.standard_normal((B, Tc, H))).astype(np.float32)).to(tdt)
+    g = torch.from_numpy((0.5 * rng.standard_normal((B, U1, H))).astype(np.float32)).to(tdt)
+    w = torch.from_numpy((rng.standard_normal((B, H, V1)) * H ** -0.5 * 4).astype(np.float32))
+    bias = torch.from_numpy((0.1 * rng.standard_normal((B, V1))).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, V1 - 1, (B, Tc * U1)))
+    labels[0, 5] = V1 + 5
+    x = torch.relu(f[:, :, None] + g[:, None]).reshape(B, Tc * U1, H).float()
+    for b in range(B):
+        lpb, lpl = _kernel_slabs(x[b], w[b], bias[b], labels[b], V1 - 1, dtype == "float32")
+        z64 = x[b].double() @ w[b].double() + bias[b].double()
+        lp64 = torch.log_softmax(z64, -1)
+        want_l = torch.where((labels[b] >= 0) & (labels[b] < V1),
+                             lp64.gather(1, labels[b].clamp(0, V1 - 1)[:, None])[:, 0],
+                             -torch.logsumexp(z64, -1))
+        assert (lpb.double() - lp64[:, V1 - 1]).abs().max() <= 1e-5
+        assert (lpl.double() - want_l).abs().max() <= 1e-5
+        if dtype == "float32":
+            lpb16, _ = _kernel_slabs(x[b], w[b], bias[b], labels[b], V1 - 1, True, fwd=False)
+            assert (lpb16.double() - lp64[:, V1 - 1]).abs().max() > 1e-5

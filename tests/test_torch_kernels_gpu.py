@@ -357,30 +357,52 @@ def _joint_inputs(B, T, U1, H, V1, dtype, dev, seed=0):
                                          (2, 5, 3, 640, 257), (2, 70, 130, 96, 300),
                                          (2, 19, 11, 136, 129)])
 def test_joint_fused_kernels_match_plain(cuda, dtype, grad_tol, rate, B, T, U1, H, V1):
-    """Both slabs atol 1e-5 (the joint input is rounded the same way on
-    both sides; f32 sums in another order); dW and db within 1e-5 of
+    """Both slabs atol 1e-5 of the forward evaluated exactly (the plain
+    version with an f64 head: the joint input is rounded the same way on
+    both sides; the f32 plain version's own sums are up to ~1e-5 off at
+    the flagship, so it cannot be the slabs' reference for a kernel that
+    sums in another order); dW and db within 1e-5 of
     max|ref| (f32 outputs; the backward's products are split TF32 on the
     tensor cores, as faithful as f32 sums); df and dg within 1e-5 of
     max|ref| in f32 and 1e-2 in bf16, where both sides round their f32
     sums to bf16 once (one bf16 step is 2^-8 of the value) and f32
     atomics sum in another order. The last shape cuts every tile edge of
     the backward: 209 pairs, H 136 and V+1 129 are multiples of none of
-    its pair tiles, head tiles, column chunks or dW tiles."""
+    its pair tiles, head tiles, column chunks or dW tiles. A forward under
+    ``no_grad`` keeps nothing but its slabs; one that records a graph
+    keeps the inputs scratch for the backward."""
+    from indic_cl_asr_torch.ops import _build
     from indic_cl_asr_torch.ops import joint_fused as J
 
     args, (dlpb, dlpl) = _joint_inputs(B, T, U1, H, V1, dtype, cuda, seed=T + U1)
     kw = dict(blank=V1 - 1, dropout_rate=rate)
     leaves = [a.clone().requires_grad_(True) for a in args[:4]]
+    scratch = _build.load("joint_fused").joint_fused_scratch(
+        B, T, U1, H, V1, int(dtype == torch.bfloat16), 0) * 4
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(cuda)
+    with torch.no_grad():
+        npb, npl = J.joint_slabs(*leaves, args[4], 1234, **kw)
+    torch.cuda.synchronize()
+    # the slabs' blocks (the caching allocator may hand out a cached block
+    # up to 1 MB larger than asked), not the inputs scratch
+    assert torch.cuda.memory_allocated(cuda) - m0 < scratch
+    del npb, npl
+    assert torch.cuda.memory_allocated(cuda) == m0
     n0 = (J.joint_fused_forward.launches, J.joint_fused_backward.launches)
     lpb, lpl = J.joint_slabs(*leaves, args[4], 1234, **kw)
+    assert torch.cuda.memory_allocated(cuda) - m0 >= scratch + lpb.nbytes + lpl.nbytes
     got = torch.autograd.grad((lpb * dlpb + lpl * dlpl).sum(), leaves)
     torch.cuda.synchronize()
     assert (J.joint_fused_forward.launches - n0[0], J.joint_fused_backward.launches - n0[1]) == (1, 1)
     leaves_p = [a.clone().requires_grad_(True) for a in args[:4]]
     rpb, rpl = J.joint_slabs_reference(*leaves_p, args[4], 1234, **kw)
     want = torch.autograd.grad((rpb * dlpb + rpl * dlpl).sum(), leaves_p)
-    assert (lpb - rpb).abs().max().item() <= 1e-5
-    assert (lpl - rpl).abs().max().item() <= 1e-5
+    with torch.no_grad():
+        xpb, xpl = J._forward_reference(*args[:2], args[2].double(), args[3].double(), args[4],
+                                        1234, V1 - 1, rate)
+    assert (lpb - xpb).abs().max().item() <= 1e-5
+    assert (lpl - xpl).abs().max().item() <= 1e-5
     for name, a, b, tol in zip(("df", "dg", "dW", "db"), got, want,
                                (grad_tol, grad_tol, 1e-5, 1e-5)):
         assert a.dtype == b.dtype
@@ -407,19 +429,57 @@ def test_joint_kernels_reject_what_they_do_not_take(cuda):
     args, _ = _joint_inputs(2, 5, 3, 2048, 9, torch.float32, cuda)
     with pytest.raises(ValueError):  # H=2048 in f32 overflows shared memory
         J.joint_slabs(*args, 0, blank=8)
-    # H=768 in bf16: the forward fits, but not the backward's tile of 128
-    # pairs' joint input beside its head ring
+    # the forward and the backward share their limit: a tile of 128 pairs'
+    # joint input beside the head ring fits at the flagship's H640 V+1 257
+    # in bf16 and not at H768
     lib = _build.load("joint_fused")
-    assert lib.joint_fused_smem(768, 9, 1, 0) <= J._SMEM_MAX < lib.joint_fused_smem(768, 9, 1, 1)
+    for backward in (0, 1):
+        assert (lib.joint_fused_smem(640, 257, 1, backward) <= J._SMEM_MAX
+                < lib.joint_fused_smem(768, 9, 1, backward))
     args, (dlpb, dlpl) = _joint_inputs(2, 5, 3, 768, 9, torch.bfloat16, cuda)
     with pytest.raises(ValueError):
         J.joint_slabs(*args, 0, blank=8)
+    with pytest.raises(ValueError):
+        J.joint_fused_forward(*args, 0, blank=8, dropout_rate=0.0)
     lse = torch.zeros((2, 5, 3), device=cuda)
     with pytest.raises(ValueError):
         J.joint_fused_backward(*args, 0, lse, dlpb, dlpl, blank=8, dropout_rate=0.0)
+    # a scratch of other shapes than the call's
+    args, (dlpb, dlpl) = _joint_inputs(2, 5, 3, 64, 9, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        J.joint_fused_backward(*args, 0, lse, dlpb, dlpl, blank=8, dropout_rate=0.0,
+                               inputs=torch.zeros(7, device=cuda))
     args, _ = _joint_inputs(2, 5, 3, 16, 9, torch.float16, cuda)
     with pytest.raises(TypeError):
         J.joint_slabs(*args, 0, blank=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_joint_backward_on_the_forward_scratch_equals_its_own(cuda, dtype):
+    """The backward on the forward's inputs scratch (the training path) and
+    on one it forms itself with the same kernels, at a shape that cuts
+    every tile edge, dropout 0.2: dW and db equal bit for bit; df and dg
+    come from f32 atomics whose order varies from run to run, so they
+    agree to 1e-6 of max|ref| in f32 and one bf16 step (2^-8) in bf16."""
+    from indic_cl_asr_torch.ops import joint_fused as J
+
+    args, (dlpb, dlpl) = _joint_inputs(2, 19, 11, 136, 129, dtype, cuda, seed=3)
+    kw = dict(blank=128, dropout_rate=0.2)
+    _, _, lse, inputs = J.joint_fused_forward(*args, 1234, **kw)
+    n0 = J.joint_fused_backward.launches
+    on_fwd = J.joint_fused_backward(*args, 1234, lse, dlpb, dlpl, inputs=inputs, **kw)
+    own = J.joint_fused_backward(*args, 1234, lse, dlpb, dlpl, **kw)
+    torch.cuda.synchronize()
+    assert J.joint_fused_backward.launches - n0 == 2
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    for name, a, b in zip(("df", "dg", "dW", "db"), on_fwd, own):
+        assert a.dtype == b.dtype
+        if name in ("dW", "db"):
+            assert torch.equal(a, b), name
+        else:
+            err = (a.float() - b.float()).abs().max().item()
+            assert err <= tol * b.float().abs().max().item(), (name, err)
 
 
 @pytest.mark.gpu
