@@ -10,7 +10,9 @@ Phases, each of which fails the script when it fails:
    (flash_mhsa.cu: flash forward and backward; decode_fused.cu;
    rnnt_lattice.cu: alpha and beta; joint_fused.cu: the fused joint
    forward and backward; beam_fused.cu: the fused beam) with nvcc for
-   sm_90a, one nvcc per source, started together.
+   sm_90a, one nvcc per source, started together; prints ptxas's
+   registers, spills and shared memory, and the bf16 flash forward's
+   dynamic shared memory a block.
 3. Kernels against their plain PyTorch versions on the card:
    flash rel-pos attention at B16 T204 E512 H8 in f32 (max abs err
    <= 1e-4) and bf16 (<= 2e-2), plus T in {1, 37, 512}, a row with
@@ -61,7 +63,13 @@ Phases, each of which fails the script when it fails:
    hypotheses, and label-looping greedy identical to both greedy paths.
 5. Timing at the serving path's shapes (CUDA events): each kernel (the
    beam at the long bucket's batch), its plain version, and its bound (bytes over 3.35 TB/s or operations over
-   the 989 TFLOP/s bf16 peak, whichever is larger). The greedy decode's
+   the 989 TFLOP/s bf16 peak, whichever is larger). The flash forward,
+   shorter than its wrapper's host time, is also timed by CUDA events
+   over a CUDA graph of calls (``graph_ms``) and by its profiled device
+   time (``device_ms``). Its
+   yardstick (``library_ms``) is ``scaled_dot_product_attention`` with
+   the position scores given (rounded, scaled, as its float attn_mask):
+   not the same function, so it does not rank the kernel. The greedy decode's
    line also gives its cluster size, its block's shared memory, ptxas's
    registers and spills, and the longest row's rounds and LSTM steps.
 6. The training slice: the flagship model (bf16, flash attention, layers
@@ -91,7 +99,10 @@ Phases, each of which fails the script when it fails:
    just after each run: joint forward and backward = training steps +
    EWC importance batches, flash forward 17 x the encoder passes, flash
    backward 5 x the backward passes, alpha and beta = the RNNT losses,
-   decode = the RNNT eval batches. Val matrix of one then two languages
+   decode = the RNNT eval batches. After the four runs one eval batch of
+   each shape goes through a new model of the same seed, outside the
+   counted runs, and the flash forward is timed at layer 0's operands
+   there (CUDA events, with its plain version and bound). Val matrix of one then two languages
    with finite WERs; on task 2 EWC's penalty_gnorm > 0, MAS's penalty > 0,
    LwF's rnnt_kd and ctc_kd finite and > 0; frozen parameters
    bit-unchanged; BatchNorm statistics bit-unchanged by every importance
@@ -107,7 +118,9 @@ Phases, each of which fails the script when it fails:
 
 Prints the card's name and power limit (``nvidia-smi``) on a line of its
 own first, then the full record as one ``record {...}`` line, the
-``{"kernels": [...]}`` line, and as its last line ``{"ok": true,
+``{"kernels": [...]}`` line (each kernel's launches summed over the
+counted runs of phases 4, 6 and 8, the beam's over its own path), and as
+its last line ``{"ok": true,
 "device": {...}}``; before them, the end-to-end numbers the fused joint
 moves (the flagship CL step's wall and device-busy ms, idle share and
 peak memory under each ``rnnt_impl``, CL wall time per method).
@@ -119,6 +132,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -160,10 +174,76 @@ def cuda_ms(fn, iters=20, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def cuda_graph_ms(fn, iters=20):
+    """ms a call of ``fn`` from CUDA events around one replay of a CUDA
+    graph of ``iters`` calls: the launches run back to back with no host
+    time between them, where a kernel shorter than its wrapper's host
+    time makes ``cuda_ms`` measure the host."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, kernel, calls=20):
+    """The device time a call of ``fn`` spends in kernels whose name holds
+    ``kernel`` (torch.profiler), over ``calls`` calls."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and kernel in e.key) / 1e3 / calls
+
+
+def flash_timings(args, **kw):
+    """The flash forward at ``args``, ms a call: CUDA events over eager
+    calls (``ms``, as every kernel line is timed), over a CUDA graph of
+    calls (``graph_ms``) and the kernel's profiled device time
+    (``device_ms``). The biases and lengths are cast to the kernel's types
+    first, so that the graph holds the kernel alone."""
+    import torch
+
+    from indic_cl_asr_torch.ops import flash_mhsa as fm
+
+    q, k, v, p, u, vb, lens = args
+    cast = (q, k, v, p, u.to(q.dtype), vb.to(q.dtype), lens.to(torch.int32))
+    call = lambda: fm.flash_relpos_mhsa(*cast, **kw)
+    return {"ms": cuda_ms(call), "graph_ms": cuda_graph_ms(call),
+            "device_ms": device_ms(call, "flash_relpos_fwd")}
+
+
 def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# the flagship flash case's row lengths (B16 T204): full, ragged, 1 and 0
+FLASH_LENS = [204] * 6 + [203, 190, 180, 160, 150, 120, 100, 64, 1, 0]
 
 
 def flash_inputs(B, T, H, D, lens, dtype, dev, seed):
@@ -187,9 +267,8 @@ def check_flash(dev, rec):
         flash_relpos_mhsa_reference,
     )
 
-    full = [204] * 6 + [203, 190, 180, 160, 150, 120, 100, 64, 1, 0]
     cases = [
-        ("B16 T204 E512 H8", 16, 204, full, (-1, -1)),
+        ("B16 T204 E512 H8", 16, 204, FLASH_LENS, (-1, -1)),
         ("T1", 2, 1, [1, 0], (-1, -1)),
         ("T37", 3, 37, [37, 20, 0], (-1, -1)),
         ("T512", 2, 512, [512, 300], (-1, -1)),
@@ -760,20 +839,29 @@ def time_kernels(model_inputs, launches, decode_work_main, rec):
         out = fm.flash_relpos_mhsa(q, k, v, p, u, vb, lens, **kw)
         ref = fm.flash_relpos_mhsa_reference(q, k, v, p, u, vb, lens, **kw)
         err = (out.float() - ref.float()).abs().max().item()
-        ms = cuda_ms(lambda: fm.flash_relpos_mhsa(q, k, v, p, u, vb, lens, **kw))
+        times = flash_timings((q, k, v, p, u, vb, lens), **kw)
+        ms = times["ms"]
         plain = cuda_ms(lambda: fm.flash_relpos_mhsa_reference(q, k, v, p, u, vb, lens, **kw))
+    rec["flash_forward_serving"] = times
     nbytes, flops = fm.work(B, T, E, lens.cpu(), itemsize=2)
     b_ms, b_by = bound_ms(nbytes, flops)
+    sdpa_ms = time_sdpa_yardstick(q, k, v, p, u, vb, lens, n_heads=8)
+    rec["flash_library_ms_is"] = ("scaled_dot_product_attention, position scores given: "
+                                  "the rounded, scaled rel-shift scores passed as its "
+                                  "float attn_mask (not the same function)")
     lines.append({
         "name": "flash_relpos_mhsa", "route": "cuda",
         "source": "indic_cl_asr_torch/csrc/flash_mhsa.cu",
         "replaces": "indic_cl_asr_tpu/ops/flash_mhsa.py:383",
         "launches": launches["flash_relpos_mhsa"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "library_ms": sdpa_ms, "graph_ms": times["graph_ms"], "device_ms": times["device_ms"],
     })
-    log(f"  flash B{B} T{T} E{E} bf16: {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}; {nbytes} B, {flops} flop), err {err:.3e}")
+    log(f"  flash B{B} T{T} E{E} bf16: {ms:.4f} ms (CUDA events over eager calls; over a "
+        f"graph of calls {times['graph_ms']:.4f}, profiled device time "
+        f"{times['device_ms']:.4f}), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{nbytes} B, {flops} flop), err {err:.3e}; SDPA with the position scores "
+        f"given {sdpa_ms:.4f} ms")
 
     f_proj, enc_lens = model_inputs["f_proj"], model_inputs["enc_lens"]
     dargs = (f_proj, enc_lens, model_inputs["lang"], model_inputs["model"])
@@ -836,10 +924,110 @@ def time_kernels(model_inputs, launches, decode_work_main, rec):
     return lines
 
 
-def ptxas_lines(source, kernel):
+def time_sdpa_yardstick(q, k, v, p, u, vb, lens, n_heads):
+    """ms of one ``scaled_dot_product_attention`` call on the same heads
+    with the position scores given: the rel-shift scores, rounded to the
+    compute dtype and scaled, and -1e30 where masked, as its float
+    attn_mask. Not the same function (the kernel computes those scores
+    itself); a yardstick for ``library_ms`` only, never called by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    from indic_cl_asr_torch.ops import flash_mhsa as fm
+
+    B, T, E = q.shape
+    H, D = n_heads, E // n_heads
+    heads = lambda x: x.reshape(B, T, H, D).transpose(1, 2).contiguous()
+    with torch.inference_mode():
+        qu = heads(q + u.reshape(-1).to(q.dtype))
+        qv = heads(q + vb.reshape(-1).to(q.dtype))
+        raw = torch.einsum("bhtd,phd->bhtp", qv.float(), p.reshape(-1, H, D).float())
+        t_idx = torch.arange(T, device=q.device)
+        shift = (T - 1) + t_idx[None, :] - t_idx[:, None]
+        bd = torch.gather(raw, 3, shift.expand(B, H, T, T)).to(q.dtype).float()
+        mask = fm._mask(T, lens.to(torch.int64), -1, -1)
+        bias = torch.where(mask, bd / math.sqrt(D), -1e30).to(q.dtype)
+        kh, vh = heads(k), heads(v)
+        return cuda_ms(lambda: F.scaled_dot_product_attention(qu, kh, vh, attn_mask=bias))
+
+
+def eval_flash_operands(dev, tasks, tok, spec):
+    """Layer 0's attention operands in the CL evaluation's encoder batches,
+    one batch of each (B, T): the first eval of phase 8's run_sequence
+    (CL_LANGS[0]'s val_clean) through its Transcriber and a new flagship
+    model of the same seed. Layer 0 is frozen, so its operands there are
+    the run's; this runs outside the counted, timed runs."""
+    import torch
+
+    from indic_cl_asr_torch.audio.features import FrontendConfig
+    from indic_cl_asr_torch.train.eval import Transcriber
+
+    model, _, _ = cl_setup(dev)
+    tr = Transcriber(model=model, tokenizer=tok, languages=CL_LANGS, frontend=FrontendConfig(),
+                     batch_size=16, bucket_spec=spec, greedy_impl="fused")
+    seen = {}
+
+    def hook(mod, args):
+        x, pos_emb, lens = args[:3]
+        seen.setdefault(tuple(x.shape[:2]), (
+            mod.linear_q(x), mod.linear_k(x), mod.linear_v(x), mod.linear_pos(pos_emb),
+            mod.pos_bias_u.to(x.dtype), mod.pos_bias_v.to(x.dtype), lens))
+
+    handle = model.encoder.layers[0].self_attn.register_forward_pre_hook(hook)
+    with torch.inference_mode():
+        tr.transcribe(tasks[CL_LANGS[0]].val_clean, "ctc")
+    handle.remove()
+    return seen
+
+
+def time_flash_eval_shapes(captured, rec):
+    """The flash forward (CUDA events) and its plain version at the
+    operands layer 0 gets in the CL evaluation's encoder batches
+    (``eval_flash_operands``), with their bounds."""
+    import torch
+
+    from indic_cl_asr_torch.ops import flash_mhsa as fm
+
+    out = {}
+    with torch.inference_mode():
+        for (B, T), args in sorted(captured.items()):
+            q, lens = args[0], args[6]
+            got = fm.flash_relpos_mhsa(*args, n_heads=8)
+            ref = fm.flash_relpos_mhsa_reference(*args, n_heads=8).float()
+            err = (got.float() - ref).abs().max().item()
+            # the bf16 bar of phase 3 (inputs of unit scale) relative to
+            # these outputs' scale, where one bf16 step is 2^-8 of a value
+            tol = 2e-2 * max(1.0, ref.abs().max().item())
+            times = flash_timings(args, n_heads=8)
+            plain = cuda_ms(lambda: fm.flash_relpos_mhsa_reference(*args, n_heads=8), iters=5)
+            nbytes, flops = fm.work(B, T, q.shape[2], lens.cpu(), itemsize=q.element_size())
+            b_ms, b_by = bound_ms(nbytes, flops)
+            out[f"B{B} T{T}"] = {**times, "plain_ms": plain, "bound_ms": b_ms,
+                                 "bound_by": b_by, "max_abs_err": err, "lens": lens.tolist()}
+            log(f"  flash forward at a CL eval batch B{B} T{T} {q.dtype}: "
+                f"{times['ms']:.4f} ms (eager; graph {times['graph_ms']:.4f}, "
+                f"device {times['device_ms']:.4f}), plain {plain:.4f} ms, bound "
+                f"{b_ms:.5f} ms ({b_by}), err {err:.3e} (tol {tol:.3g}), lens "
+                f"{lens.tolist()}")
+            if not err <= tol:
+                raise AssertionError(f"flash at eval batch B{B} T{T}: err {err} > {tol}")
+    rec["flash_forward_eval_shapes"] = out
+
+
+def flash_mma_shared_bytes(D):
+    """Dynamic shared memory of a bf16 flash forward block at head dim D:
+    ``MmaLayout<D>::BYTES`` of csrc/flash_mhsa.cu (rows of D + 8 halves;
+    Qu and Qv's 2 x 64 rows, or the 4 warps' 16-row staging of 88 halves
+    if larger; K, V and the 128-row window)."""
+    ld = D + 8
+    return (max(2 * 64 * ld, 4 * 16 * 88) + (2 * 64 + 128) * ld) * 2
+
+
+def ptxas_lines(source, kernel, by_dim=False):
     """ptxas's resource line (registers, spills, static shared memory) of
     each instantiation of ``kernel`` in the build log of ``source``, by
-    compute type."""
+    compute type (and with ``by_dim`` by its int template argument, the
+    head dim)."""
     from indic_cl_asr_torch.ops import _build
 
     out, func, spill = {}, "", ""
@@ -849,7 +1037,10 @@ def ptxas_lines(source, kernel):
         elif "spill" in line:
             spill = "; " + line.strip()
         elif "registers" in line and kernel in func:
-            out["bf16" if "bfloat16" in func else "f32"] = line.split(":", 1)[-1].strip() + spill
+            key = "bf16" if "bfloat16" in func else "f32"
+            dim = re.search(kernel + r"I\w*?Li(\d+)E", func) if by_dim else None
+            key += f" D{dim.group(1)}" if dim else ""
+            out[key] = line.split(":", 1)[-1].strip() + spill
     return out
 
 
@@ -917,9 +1108,8 @@ def check_flash_backward(dev, rec):
         keep_threshold,
     )
 
-    full = [204] * 6 + [203, 190, 180, 160, 150, 120, 100, 64, 1, 0]
     cases = [
-        ("B16 T204 E512 H8", 16, 204, full, (-1, -1)),
+        ("B16 T204 E512 H8", 16, 204, FLASH_LENS, (-1, -1)),
         ("T1", 2, 1, [1, 0], (-1, -1)),
         ("T37", 3, 37, [37, 20, 0], (-1, -1)),
         ("T512", 2, 512, [512, 300], (-1, -1)),
@@ -1388,7 +1578,8 @@ def time_training_kernels(captured, launches, rec):
     ms = cuda_ms(lambda: fm.flash_relpos_mhsa_backward(*args, **kw))
     plain = cuda_ms(lambda: fm.flash_relpos_mhsa_backward_reference(
         q, k, v, p, u, vb, lens, dout, **kw), iters=5)
-    nbytes, flops = fm.work_backward(B, T, E, lens.cpu(), itemsize=q.element_size())
+    nbytes, flops = fm.work_backward(B, T, E, lens.cpu(), kw["n_heads"],
+                                     itemsize=q.element_size())
     b_ms, b_by = bound_ms(nbytes, flops)
     lines.append({
         "name": "flash_relpos_mhsa_backward", "route": "cuda",
@@ -1403,14 +1594,14 @@ def time_training_kernels(captured, launches, rec):
         f"err {err:.3e}")
     # the forward at the same operands with the step's dropout, for PERF's row 1
     with torch.no_grad():
-        fwd_kw = dict(kw)
-        fwd_ms = cuda_ms(lambda: fm.flash_relpos_mhsa(q, k, v, p, u, vb, lens, **fwd_kw))
-        fwd_kw["dropout_rate"] = 0.0
-        fwd_ms0 = cuda_ms(lambda: fm.flash_relpos_mhsa(q, k, v, p, u, vb, lens, **fwd_kw))
-    rec["flash_forward_training_shapes"] = {"dropout_ms": fwd_ms, "no_dropout_ms": fwd_ms0,
+        drop = flash_timings((q, k, v, p, u, vb, lens), **kw)
+        no_drop = flash_timings((q, k, v, p, u, vb, lens), **dict(kw, dropout_rate=0.0))
+    rec["flash_forward_training_shapes"] = {"dropout": drop, "no_dropout": no_drop,
                                             "dropout_rate": kw["dropout_rate"]}
-    log(f"  flash forward at the same operands: {fwd_ms:.4f} ms with dropout "
-        f"{kw['dropout_rate']}, {fwd_ms0:.4f} ms without")
+    log(f"  flash forward at the same operands: {drop['ms']:.4f} ms with dropout "
+        f"{kw['dropout_rate']} (graph {drop['graph_ms']:.4f}, device {drop['device_ms']:.4f}), "
+        f"{no_drop['ms']:.4f} ms without (graph {no_drop['graph_ms']:.4f}, "
+        f"device {no_drop['device_ms']:.4f})")
 
     lpb, lpl = captured["alpha"]
     B, T, U1 = lpb.shape
@@ -1894,6 +2085,7 @@ def run_cl(dev, rec):
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
     rec["cl_launches"] = total
+    time_flash_eval_shapes(eval_flash_operands(dev, tasks, tok, spec), rec)
     captured = time_cl_step(dev, rec, tasks, tok, spec)
     return time_joint_kernels(captured, total, rec)
 
@@ -1933,6 +2125,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    rec["flash_forward_build"] = {
+        "ptxas": ptxas_lines("flash_mhsa", "flash_relpos_fwd_mma_kernel", by_dim=True),
+        "dynamic_shared_bytes": {f"D{d}": flash_mma_shared_bytes(d) for d in (16, 32, 64, 128)}}
+    log(f"  flash forward (bf16 on mma.sync, 128 threads a block): ptxas "
+        f"{rec['flash_forward_build']['ptxas']}; dynamic shared memory a block "
+        f"{rec['flash_forward_build']['dynamic_shared_bytes']}")
 
     log("[3/8] kernels vs plain versions on the card")
     check_flash(dev, rec)
@@ -1966,6 +2164,18 @@ def main() -> int:
              "rnnt_beta", "joint_fused_forward", "joint_fused_backward",
              "rnnt_greedy_decode_fused", "rnnt_beam_search_fused"]
     kernels.sort(key=lambda k: order.index(k["name"]))
+    # each kernel's launches over the main path's counted runs: the serving
+    # slice (phase 4; the beam's from its own path), the training steps
+    # (phase 6) and the CL sequence (phase 8)
+    phases = {"serving": launches, "training": train_launches, "cl": rec["cl_launches"]}
+    rec["main_path_launches"] = {}
+    for line in kernels:
+        by = {ph: c.get(line["name"], 0) for ph, c in phases.items()}
+        line["launches"] = sum(by.values())
+        rec["main_path_launches"][line["name"]] = by
+        if line["launches"] == 0:
+            raise AssertionError(f"{line['name']} was not launched on the main path")
+    log(f"  launches on the main path by phase: {rec['main_path_launches']}")
     rec["kernels"] = kernels
     # the end-to-end numbers the fused joint moves: a flagship CL step
     # under each rnnt_impl (wall and device-busy ms, idle share, peak

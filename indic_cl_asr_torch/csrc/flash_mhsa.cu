@@ -14,18 +14,45 @@
 // p [2T-1, H*D] in XL order (row m encodes relative position (T-1)-m);
 // bias_u, bias_v [H*D]; lens [B] int32.
 //
-// Forward design (a first, simple kernel): one block per (64-row query
-// tile, head, batch row), 256 threads, an online softmax over 64-wide key
-// tiles. For a (t0, j0) tile pair the rel-shift reads only p rows
-// (T-1)+j0-t0-63 ... (T-1)+j0-t0+63, a 127-row window held in shared
-// memory; bd[t,j] is the dot of (q+v)[t] with window row
-// (j-j0)-(t-t0)+63, computed only for the 64x64 pairs that need it
-// (the TPU's strided roll becomes an index; T needs no 128-padding and
-// has no cap). Key tiles outside the valid length or the band are
-// skipped. Each thread owns a 4x4 block of scores and 4 rows x D/16
-// output columns; all sums are f32 (scalar FMAs from shared memory).
-// With ``lse`` given it also writes each row's log-sum-exp, the one
-// statistic the backward needs to rebuild the probabilities.
+// Forward in bf16 (flash_relpos_fwd_mma_kernel), on the tensor cores: one
+// block of 4 warps per (64-row query tile, head, batch row), walking
+// 64-wide key tiles with an online softmax; warp w owns query rows
+// 16w .. 16w+15. Qu = round(q+u) and Qv = round(q+v), the key tile K, the
+// value tile V and, for the (t0, j0) tile pair, the 128-row window of p
+// rows (T-1)+j0-t0-63 ... (the rel-shift reads only those) are staged in
+// shared memory as bf16, rows padded by 16 bytes so that ldmatrix reads
+// them without bank conflicts; K, V and window rows past the valid length
+// or outside [0, 2T-2] are zero-filled by the cp.async copies (a NaN bit
+// pattern left there would survive P = 0 in an mma). Each warp keeps its
+// Qu and Qv A fragments in registers for the whole walk. Per key tile:
+//   ac  = Qu·Kᵀ, 16x64 a warp, mma.sync.m16n8k16 bf16 with f32 sums;
+//   bd: for rows r and columns c the window row is c - r + 63, so warp w
+//       needs window rows 48-16w .. 127-16w only: it computes that 16x80
+//       product raw = Qv·Winᵀ on mma.sync, rounds it to bf16 as it writes
+//       it to its own staging rows in shared memory (the one rounding
+//       point of the position score), and reads bd[i][c] back at column
+//       c - i + 15 of staging row i (the TPU's strided roll becomes this
+//       skewed index; T needs no padding and has no cap);
+//   s = (ac + bd)·scale, masked, and the online softmax in the C-fragment
+//       registers: row max and later the row sum reduced over the lane
+//       quad with __shfl_xor_sync, the dropout bits hashed at each
+//       element's (t, j), O rescaled when the row max moves;
+//   O += P·V on mma.sync, P's C fragments repacked in registers as bf16 A
+//       fragments (the FlashAttention-2 idiom), V read by ldmatrix.trans.
+// Key tiles outside the valid length or the band are skipped. The bd
+// staging rows reuse the shared memory of the Q tiles once every warp
+// holds its fragments: 55,296 B a block at D 64, and three blocks share
+// an SM. Loads are not overlapped with the products inside a block
+// (single-buffered cp.async); the other resident blocks hide them (a
+// double-buffered ring needs 92 KB a block, which fits two an SM).
+//
+// Forward in f32 (flash_relpos_fwd_kernel, the CPU-parity dtype): scalar
+// f32 FMAs from shared memory, one block of 256 threads per (query tile,
+// head, batch row), each thread a 4x4 block of scores and 4 rows x D/16
+// output columns; bd[t,j] is the dot of (q+v)[t] with window row
+// (j-j0)-(t-t0)+63 of the same 127-row window.
+// With ``lse`` given both forwards also write each row's log-sum-exp, the
+// one statistic the backward needs to rebuild the probabilities.
 //
 // Dropout: the TPU kernel draws its keep mask from the TPU's PRNG seeded
 // per (batch, head) and draws it again in the backward. Here the bits come
@@ -37,9 +64,14 @@
 // The keep test is the TPU kernel's: bits <= uint32((1-rate)(2^32-1)).
 // Nothing is stored: the backward draws the same bits again.
 //
-// Backward design: the forward's tiling. A block per (query tile, head,
-// batch row) rebuilds its scores exactly as the forward does (same loop,
-// same rounding), P = exp(s - lse), and walks the key tiles twice. The
+// Backward design: the f32 forward's tiling. A block per (query tile,
+// head, batch row) rebuilds its scores as the f32 forward computes them
+// (same loop, same rounding points), P = exp(s - lse) from the forward's
+// lse, and walks the key tiles twice. (In bf16 the forward sums its dots
+// on the tensor cores in another order, so a position score's bf16
+// rounding may differ now and then, and P is not bit-identical to the
+// forward's; the tests bound the gradients against the plain version's
+// autograd.) The
 // first walk sums delta = rowsum(dP ∘ P) in registers, from the very P and
 // dP the gradients use (rowsum(dO ∘ O) would be cheaper, but O is rounded
 // to the compute dtype, which leaves a residue where the exact gradient is
@@ -54,11 +86,11 @@
 // atomics into zeroed scratch do, so their order, and their last bits,
 // change from run to run.
 //
-// Bound at flagship shapes (B16 T204 E512 H8, bf16): the forward ~2 GFLOP
-// and ~13 MB per call, the backward ~2.7x the flops and ~30 MB: below the
-// H100's bf16 ridge, so the bytes bound both (~4 us and ~9 us). These
-// kernels run on the CUDA cores, far from that bound; wgmma, TMA and bf16
-// shared-memory tiles are the next step.
+// Bound at flagship shapes (B16 T204 E512 H8, bf16): the forward ~1.2
+// GFLOP on the rows' lengths and ~13.8 MB per call, the backward ~2.7x
+// the flops and ~30 MB: below the H100's bf16 ridge, so the bytes bound
+// both (~4 us and ~9 us). The backward still runs on the CUDA cores
+// (scalar FMAs, as the f32 forward); wgmma and TMA are for later.
 //
 // Numerics follow the plain version (ops/flash_mhsa.py): q+u and q+v
 // rounded to the compute dtype, f32 dots, the position score rounded once
@@ -336,6 +368,274 @@ __global__ void __launch_bounds__(NT) flash_relpos_fwd_kernel(
   }
 }
 
+// ---- the bf16 forward on the tensor cores (mma.sync.m16n8k16) ----
+
+constexpr int MW = 4;            // warps a block, 16 query rows each
+constexpr int MNT = MW * 32;     // threads a block
+constexpr int WR = 128;          // window rows staged a key tile (PW used)
+constexpr int XW = 80;           // window rows a warp reads: 48-16w .. 127-16w
+constexpr int SLD = 88;          // staging row stride (bf16): conflict-free writes
+
+typedef __nv_bfloat16 bf16;
+
+template <int D> struct MmaLayout {
+  static constexpr int LD = D + 8;                 // bf16 a staged row (+16 B)
+  static constexpr int Q_HALVES = 2 * TQ * LD;     // Qu, Qv
+  static constexpr int ST_HALVES = MW * 16 * SLD;  // bd staging, reusing Q's rows
+  static constexpr int A_HALVES = Q_HALVES > ST_HALVES ? Q_HALVES : ST_HALVES;
+  static constexpr int BYTES = (A_HALVES + (2 * TK + WR) * LD) * 2;
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a·b, one m16n8k16 tile: bf16 operands, f32 accumulation
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16-byte asynchronous copy global -> shared; zero-filled when !valid
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// eight bf16 values of a + b, each summed in f32 and rounded to bf16
+__device__ __forceinline__ uint4 add_round8(uint4 a, uint4 b) {
+  const uint32_t* x = reinterpret_cast<const uint32_t*>(&a);
+  const uint32_t* y = reinterpret_cast<const uint32_t*>(&b);
+  uint4 r;
+  uint32_t* z = reinterpret_cast<uint32_t*>(&r);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + i));
+    const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(y + i));
+    z[i] = pack_bf16(u.x + w.x, u.y + w.y);
+  }
+  return r;
+}
+
+// Up to D 64, three blocks an SM: registers capped at 168 a thread (ptxas
+// spills none), where left to itself it took 209 and fitted two.
+template <int D>
+__global__ void __launch_bounds__(MNT, D <= 64 ? 3 : 1) flash_relpos_fwd_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ p, const bf16* __restrict__ bu,
+    const bf16* __restrict__ bv, const int* __restrict__ lens,
+    bf16* __restrict__ out, float* __restrict__ lse, int T_, int H, int left,
+    int right, float scale, Drop drop) {
+  using L = MmaLayout<D>;
+  constexpr int LD = L::LD;
+  constexpr int KS = D / 16;  // k-steps of the score products
+  constexpr int C8 = D / 8;   // 16-byte chunks of a row; output n-tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQu = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sQv = sQu + TQ * LD;
+  bf16* sK = sQu + L::A_HALVES;
+  bf16* sV = sK + TK * LD;
+  bf16* sW = sV + TK * LD;
+
+  const int t0 = blockIdx.x * TQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int E = H * D;
+  const int tid = threadIdx.x;
+  const int wi = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tg = lane & 3;  // C fragment: rows g, g+8; columns 2tg, 2tg+1
+  int n = lens[b];
+  n = n < 0 ? 0 : (n > T_ ? T_ : n);
+  const uint32_t key = drop_key(drop.seed, b, h, H);
+
+  float o[C8][4];
+#pragma unroll
+  for (int c = 0; c < C8; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  float m_r[2] = {NEG, NEG}, l_r[2] = {0.f, 0.f};  // rows g, g+8; l_r per lane
+
+  if (t0 < n) {
+    for (int idx = tid; idx < TQ * C8; idx += MNT) {
+      const int r = idx / C8, c = (idx % C8) * 8, t = t0 + r;
+      uint4 wu = make_uint4(0, 0, 0, 0), wv = wu;
+      if (t < T_) {
+        const uint4 qq = *reinterpret_cast<const uint4*>(q + ((size_t)b * T_ + t) * E + h * D + c);
+        wu = add_round8(qq, *reinterpret_cast<const uint4*>(bu + h * D + c));
+        wv = add_round8(qq, *reinterpret_cast<const uint4*>(bv + h * D + c));
+      }
+      *reinterpret_cast<uint4*>(sQu + r * LD + c) = wu;
+      *reinterpret_cast<uint4*>(sQv + r * LD + c) = wv;
+    }
+    __syncthreads();
+    uint32_t aqu[KS][4], aqv[KS][4];
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int off = (16 * wi + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8;
+      ldsm_x4(aqu[ks], sQu + off);
+      ldsm_x4(aqv[ks], sQv + off);
+    }
+    // this warp's bd staging rows: [16][SLD], over the Q rows once all
+    // warps hold their fragments (the barrier at the top of each key tile)
+    bf16* st = sQu + wi * 16 * SLD;
+    const int wbase = (TQ - 16) - 16 * wi;  // first window row the warp reads
+    // ldmatrix row and column of this lane for B operands ([n][k] rows)
+    const int lr = ((lane >> 4) << 3) + (lane & 7), lc = ((lane >> 3) & 1) * 8;
+
+    int j_lo, j_hi;
+    key_range(t0, n, left, right, &j_lo, &j_hi);
+    for (int j0 = (j_lo / TK) * TK; j0 < j_hi; j0 += TK) {
+      __syncthreads();  // the previous tile's readers are done
+      const int g0 = (T_ - 1) + j0 - t0 - (TQ - 1);
+      for (int idx = tid; idx < TK * C8; idx += MNT) {
+        const int r = idx / C8, c = (idx % C8) * 8, j = j0 + r;
+        const bool ok = j < n;
+        const size_t off = ok ? ((size_t)b * T_ + j) * E + h * D + c : 0;
+        cp16(sK + r * LD + c, k + off, ok);
+        cp16(sV + r * LD + c, v + off, ok);
+      }
+      for (int idx = tid; idx < WR * C8; idx += MNT) {
+        const int w = idx / C8, c = (idx % C8) * 8, gg = g0 + w;
+        const bool ok = w < PW && gg >= 0 && gg < 2 * T_ - 1;
+        cp16(sW + w * LD + c, p + (ok ? (size_t)gg * E + h * D + c : 0), ok);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+      __syncthreads();
+
+      // position scores: raw = Qv·Winᵀ over the warp's 80 window rows,
+      // rounded to bf16 as they are staged
+#pragma unroll
+      for (int pr = 0; pr < XW / 16; ++pr) {
+        float c2[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t bw[4];
+          ldsm_x4(bw, sW + (wbase + pr * 16 + lr) * LD + ks * 16 + lc);
+          mma16816(c2[0], aqv[ks], bw[0], bw[1]);
+          mma16816(c2[1], aqv[ks], bw[2], bw[3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = pr * 16 + e * 8 + 2 * tg;
+          *reinterpret_cast<uint32_t*>(st + g * SLD + col) = pack_bf16(c2[e][0], c2[e][1]);
+          *reinterpret_cast<uint32_t*>(st + (g + 8) * SLD + col) = pack_bf16(c2[e][2], c2[e][3]);
+        }
+      }
+      // content scores ac = Qu·Kᵀ
+      float s[TK / 8][4];
+#pragma unroll
+      for (int nt = 0; nt < TK / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+      for (int np = 0; np < TK / 16; ++np)
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t bk[4];
+          ldsm_x4(bk, sK + (np * 16 + lr) * LD + ks * 16 + lc);
+          mma16816(s[2 * np], aqu[ks], bk[0], bk[1]);
+          mma16816(s[2 * np + 1], aqu[ks], bk[2], bk[3]);
+        }
+      __syncwarp();
+
+      // s = (ac + bd)·scale, masked; element e of tile nt is row g + 8(e/2),
+      // column 8nt + 2tg + e%2; bd of row i, column c at staging column c-i+15
+      uint32_t okm = 0;
+      float mx[2] = {NEG, NEG};
+#pragma unroll
+      for (int nt = 0; nt < TK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ri = g + (e >> 1) * 8, c = nt * 8 + 2 * tg + (e & 1);
+          const float bd = __bfloat162float(st[ri * SLD + c - ri + (16 - 1)]);
+          const bool ok = visible(t0 + 16 * wi + ri, j0 + c, n, left, right);
+          okm |= (ok ? 1u : 0u) << (nt * 4 + e);
+          s[nt][e] = ok ? (s[nt][e] + bd) * scale : NEG;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r]);
+        alpha[r] = expf(m_r[r] - m_new);
+        m_r[r] = m_new;
+        l_r[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int c = 0; c < C8; ++c) {
+        o[c][0] *= alpha[0];
+        o[c][1] *= alpha[0];
+        o[c][2] *= alpha[1];
+        o[c][3] *= alpha[1];
+      }
+      // exps: summed unrounded, rounded to bf16 (dropped ones 0) for P·V
+#pragma unroll
+      for (int nt = 0; nt < TK / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ri = g + (e >> 1) * 8, c = nt * 8 + 2 * tg + (e & 1);
+          const float ex = (okm >> (nt * 4 + e)) & 1u ? expf(s[nt][e] - m_r[e >> 1]) : 0.f;
+          l_r[e >> 1] += ex;
+          const bool kept =
+              !drop.on || drop_bits(key, t0 + 16 * wi + ri, j0 + c, T_) <= drop.thr;
+          s[nt][e] = kept ? ex : 0.f;
+        }
+      // O += P·V: the C fragments of key columns 16kk.. are the A fragment
+#pragma unroll
+      for (int kk = 0; kk < TK / 16; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bvv[4];
+          ldsm_x4_t(bvv, sV + (kk * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
+          mma16816(o[2 * dp], pa, bvv[0], bvv[1]);
+          mma16816(o[2 * dp + 1], pa, bvv[2], bvv[3]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+    const int t = t0 + 16 * wi + g + 8 * r;
+    if (t >= T_) continue;
+    const float inv = (l_r[r] == 0.f ? 1.f : 1.f / l_r[r]) * drop.scale;
+    bf16* orow = out + ((size_t)b * T_ + t) * E + h * D + 2 * tg;
+#pragma unroll
+    for (int c = 0; c < C8; ++c)
+      *reinterpret_cast<uint32_t*>(orow + 8 * c) =
+          pack_bf16(o[c][2 * r] * inv, o[c][2 * r + 1] * inv);
+    if (lse != nullptr && tg == 0)
+      lse[((size_t)b * H + h) * T_ + t] = l_r[r] > 0.f ? m_r[r] + logf(l_r[r]) : 0.f;
+  }
+}
+
 // P, Pd and dP of the thread's 4x4 block of a (t0, j0) tile pair
 template <typename T, int D>
 __device__ __forceinline__ void tile_probs(
@@ -577,22 +877,22 @@ __global__ void dropout_bits_kernel(uint32_t seed, int B, int H, int T_,
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v,
-                       const void* p, const void* bu, const void* bv,
-                       const void* lens, void* out, float* lse, int B, int T_,
-                       int H, int left, int right, float scale, Drop drop,
-                       cudaStream_t stream) {
+template <int D>
+cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
+                           const void* p, const void* bu, const void* bv,
+                           const void* lens, void* out, float* lse, int B,
+                           int T_, int H, int left, int right, float scale,
+                           Drop drop, cudaStream_t stream) {
   const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_relpos_fwd_kernel<T, D>,
+      flash_relpos_fwd_kernel<float, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((T_ + TQ - 1) / TQ, H, B);
-  flash_relpos_fwd_kernel<T, D><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)p, (const T*)bu,
-      (const T*)bv, (const int*)lens, (T*)out, lse, T_, H, left, right, scale,
-      drop);
+  flash_relpos_fwd_kernel<float, D><<<grid, NT, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)p,
+      (const float*)bu, (const float*)bv, (const int*)lens, (float*)out, lse, T_,
+      H, left, right, scale, drop);
   return cudaGetLastError();
 }
 
@@ -613,6 +913,23 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
       (const T*)q, (const T*)k, (const T*)v, (const T*)p, (const T*)bu,
       (const T*)bv, (const int*)lens, (const T*)dout, lse, dqu,
       dqv, dk, dv, dp, T_, H, left, right, scale, drop);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_fwd_mma(const void* q, const void* k, const void* v,
+                           const void* p, const void* bu, const void* bv,
+                           const void* lens, void* out, float* lse, int B,
+                           int T_, int H, int left, int right, float scale,
+                           Drop drop, cudaStream_t stream) {
+  constexpr int smem = MmaLayout<D>::BYTES;
+  cudaError_t e = cudaFuncSetAttribute(flash_relpos_fwd_mma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((T_ + TQ - 1) / TQ, H, B);
+  flash_relpos_fwd_mma_kernel<D><<<grid, MNT, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)p, (const bf16*)bu,
+      (const bf16*)bv, (const int*)lens, (bf16*)out, lse, T_, H, left, right, scale, drop);
   return cudaGetLastError();
 }
 
@@ -639,21 +956,20 @@ extern "C" int flash_relpos_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   const Drop dr = make_drop(seed, thr, drop_scale, use_drop);
   float* l = (float*)lse;
-#define FWD(TY, DD)                                                          \
-  launch_fwd<TY, DD>(q, k, v, p, bu, bv, lens, out, l, B, T_, H, left, right, \
-                     scale, dr, s)
-#define FWD_D(TY)                                     \
+#define FWD(LAUNCH, DD) \
+  LAUNCH<DD>(q, k, v, p, bu, bv, lens, out, l, B, T_, H, left, right, scale, dr, s)
+#define FWD_D(LAUNCH)                                 \
   switch (D) {                                        \
-    case 16: return (int)FWD(TY, 16);                 \
-    case 32: return (int)FWD(TY, 32);                 \
-    case 64: return (int)FWD(TY, 64);                 \
-    case 128: return (int)FWD(TY, 128);               \
+    case 16: return (int)FWD(LAUNCH, 16);             \
+    case 32: return (int)FWD(LAUNCH, 32);             \
+    case 64: return (int)FWD(LAUNCH, 64);             \
+    case 128: return (int)FWD(LAUNCH, 128);           \
     default: return (int)cudaErrorInvalidValue;       \
   }
   if (dtype == 0) {
-    FWD_D(float)
+    FWD_D(launch_fwd_f32)
   } else if (dtype == 1) {
-    FWD_D(__nv_bfloat16)
+    FWD_D(launch_fwd_mma)
   }
 #undef FWD_D
 #undef FWD

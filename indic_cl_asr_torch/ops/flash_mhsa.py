@@ -25,17 +25,23 @@ hash of (seed, b, h, t, j) (``dropout_bits``, the kernel's
 and the plain version computes the very same bits, so kernel and plain
 version agree with dropout on.
 
-The kernels (``csrc/flash_mhsa.cu``) are a first, simple design: one block
-per (64-row query tile, head, batch row) walking 64-wide key tiles; the
-rel-shift is an index into a 127-row window of ``p`` in shared memory, so
-T is not padded and has no cap. The forward keeps each row's log-sum-exp
-for the backward, which rebuilds the probabilities tile by tile (a first
-walk over the keys sums rowsum(dP∘P), a second the gradients), keeps dq
-in registers and adds dk, dv and dp (summed over the batch) with f32
-atomics. At flagship shapes (B16 T204 E512 H8 bf16) both are below the
-card's bf16 ridge, so the bytes bound them (about 4 µs forward, 9 µs
-backward); they compute with scalar f32 FMAs from shared memory, and
-tensor cores (``wgmma``) and TMA are the next step.
+The kernels (``csrc/flash_mhsa.cu``): one block per (64-row query tile,
+head, batch row) walking 64-wide key tiles with an online softmax; the
+rel-shift reads only a 127-row window of ``p`` per tile pair, so T is not
+padded and has no cap. In bf16 the forward runs on the tensor cores
+(``mma.sync.m16n8k16``, f32 sums): 4 warps of 16 query rows over bf16
+tiles in shared memory; each warp computes the 16x80 product of its rows
+with the window rows it needs, rounds it to bf16 into shared memory (the
+position score's one rounding) and reads each score back at its skewed
+column; softmax statistics stay in registers and P goes to the P·V
+product as bf16 register fragments. In f32 the forward computes with
+scalar FMAs from shared memory. Both keep each row's log-sum-exp for the
+backward, which rebuilds the probabilities tile by tile with scalar f32
+FMAs (a first walk over the keys sums rowsum(dP∘P), a second the
+gradients), keeps dq in registers and adds dk, dv and dp (summed over
+the batch) with f32 atomics. At flagship shapes (B16 T204 E512 H8 bf16)
+both are below the card's bf16 ridge, so the bytes bound them (about
+4 µs forward, 9 µs backward).
 """
 
 from __future__ import annotations
@@ -160,6 +166,12 @@ def _check_cuda(q, k, v, p, n_heads, dims):
             raise TypeError(f"{name} must be {dt} on {q.device}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous and 16-byte aligned (a copy where it is not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _drop_args(dropout_rate: float, seed: int):
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
@@ -178,9 +190,10 @@ def _launch_fwd(q, k, v, p, bias_u, bias_v, lens, n_heads, left, right,
     B, T, E = q.shape
     dt = q.dtype
     D = E // n_heads
-    q, k, v, p = (t.contiguous() for t in (q, k, v, p))
-    bu = bias_u.reshape(-1).to(dt).contiguous()
-    bv = bias_v.reshape(-1).to(dt).contiguous()
+    # the bf16 kernel copies 16-byte chunks of every operand
+    q, k, v, p = (_aligned(t) for t in (q, k, v, p))
+    bu = _aligned(bias_u.reshape(-1).to(dt))
+    bv = _aligned(bias_v.reshape(-1).to(dt))
     lens_i = lens.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     lse = (torch.empty((B, n_heads, T), dtype=torch.float32, device=q.device)
@@ -353,26 +366,40 @@ def _bind(lib: ctypes.CDLL) -> None:
 _build.BINDERS["flash_mhsa"] = _bind
 
 
+def _needed(T: int, lens, left: int, right: int) -> tuple[int, int, int]:
+    """What the data needs of one call: (query/key rows with a visible
+    pair, rows of p at an offset j - t of a visible pair, visible pairs)."""
+    lens = torch.as_tensor(lens, dtype=torch.int64).cpu()
+    mask = _mask(T, lens, left, right)[:, 0]
+    rows = int(mask.any(dim=2).sum())
+    idx = torch.arange(T)
+    offsets = (idx[None, :] - idx[:, None])[mask.any(dim=0)]
+    return rows, int(torch.unique(offsets).numel()), int(mask.sum())
+
+
 def work(B: int, T: int, E: int, lens, left: int = -1, right: int = -1,
          itemsize: int = 2) -> tuple[int, int]:
     """(bytes, flops) one forward call must move and compute for these
-    inputs: q, k, v, p read once and out written once; three dot products
-    of length D per visible (query, key) pair (ac, bd, P·V)."""
-    nbytes = (4 * B * T * E + (2 * T - 1) * E) * itemsize
-    lens = torch.as_tensor(lens, dtype=torch.int64).cpu()
-    visible = int(_mask(T, lens, left, right).sum())
+    inputs: q, k and v read once over the rows within the lengths, p over
+    the offsets of visible pairs, the two biases, and out written once in
+    full; three dot products of length D per visible (query, key) pair
+    (ac, bd, P·V)."""
+    rows, p_rows, visible = _needed(T, lens, left, right)
+    nbytes = (3 * rows * E + p_rows * E + 2 * E + B * T * E) * itemsize
     return nbytes, 3 * 2 * visible * E
 
 
-def work_backward(B: int, T: int, E: int, lens, left: int = -1,
+def work_backward(B: int, T: int, E: int, lens, n_heads: int, left: int = -1,
                   right: int = -1, itemsize: int = 2) -> tuple[int, int]:
-    """(bytes, flops) one backward call must move and compute: q, k, v, p
-    and dO read once, dq, dk, dv and dp written once; per visible pair the
-    two score dots, dO·v, and the five products dqu, dqv, dk, dv, dp
-    (eight dot products of length D; the kernel's second walk over the
-    keys repeats three of them, which the bound does not count)."""
-    nbytes = (5 * B * T * E + (2 * T - 1) * E) * itemsize
-    nbytes += (4 * B * T * E + (2 * T - 1) * E) * itemsize
-    lens = torch.as_tensor(lens, dtype=torch.int64).cpu()
-    visible = int(_mask(T, lens, left, right).sum())
+    """(bytes, flops) one backward call must move and compute: q, k, v and
+    dO read once over the rows within the lengths, p over the offsets of
+    visible pairs, the two biases and the f32 lse [B, H, T] over those
+    rows; dq, dk, dv and dp written once in full, and the two bias
+    gradients; per visible pair the two score dots, dO·v, and the five
+    products dqu, dqv, dk, dv, dp (eight dot products of length D; the
+    kernel's second walk over the keys repeats three of them, which the
+    bound does not count)."""
+    rows, p_rows, visible = _needed(T, lens, left, right)
+    nbytes = (4 * rows * E + p_rows * E + 2 * E) * itemsize + rows * n_heads * 4
+    nbytes += (3 * B * T * E + (2 * T - 1) * E + 2 * E) * itemsize
     return nbytes, 8 * 2 * visible * E

@@ -4,7 +4,19 @@ kernel in interpret mode and its XLA oracle ``relpos_attention_reference``,
 in f32 on the CPU, atol 1e-5. Cases cover a row with lens=0, T=1 and
 (left, right) bands. The kernel itself is held against this plain version
 on the card by tests/test_torch_kernels_gpu.py.
+
+A CPU model of the bf16 forward kernel's schedule (``_kernel_schedule``:
+64-row query tiles and 64-wide key tiles, each warp's 16x80 window product
+rounded to the compute dtype and read back at its skewed index, the
+online softmax with exps rounded per key tile, O rescaled, one final
+division) is held against the plain version and the JAX package's Pallas
+kernel in interpret mode: in f32 to atol 1e-5 (outputs and the row
+log-sum-exps), in bf16 to the card's bar of 2e-2 (the kernel rounds each
+tile's exps before P·V, the plain version the normalised probabilities),
+and its position scores to the plain version's rel-shift exactly in f32.
 """
+
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,9 +26,14 @@ import torch
 from indic_cl_asr_tpu.ops.flash_mhsa import flash_relpos_mhsa as jax_flash
 from indic_cl_asr_tpu.ops.flash_mhsa import relpos_attention_reference
 from indic_cl_asr_torch.ops.flash_mhsa import (
+    _aligned,
+    _mask,
+    dropout_bits,
     flash_relpos_mhsa,
     flash_relpos_mhsa_reference,
+    keep_threshold,
     work,
+    work_backward,
 )
 
 ATOL = 1e-5
@@ -97,9 +114,207 @@ def test_wrapper_on_cpu_takes_plain_version_and_checks_inputs():
         flash_relpos_mhsa(*meta, n_heads=2)
 
 
+def test_aligned_copies_only_misaligned_operands():
+    """The bf16 kernel copies 16-byte chunks: an operand that starts off a
+    16-byte boundary is copied, an aligned contiguous one is passed as is."""
+    base = torch.zeros(64, dtype=torch.bfloat16)
+    assert _aligned(base) is base
+    view = base[1:33]  # 2 bytes past the storage's start
+    assert view.data_ptr() % 16 != 0
+    got = _aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+
+
 def test_work_counts_visible_pairs():
+    # q, k, v over the 4 + 2 rows within the lengths, p over offsets -3..3,
+    # the two biases, out in full
     nbytes, flops = work(2, 4, 8, [4, 2], itemsize=2)
-    assert nbytes == (4 * 2 * 4 * 8 + 7 * 8) * 2
+    assert nbytes == (3 * 6 * 8 + 7 * 8 + 2 * 8 + 2 * 4 * 8) * 2
     assert flops == 3 * 2 * (16 + 4) * 8
-    _, banded = work(1, 4, 8, [4], left=0, right=0)
+    # a band of one key reads p at offset 0 alone; a row of length 0 nothing
+    banded_bytes, banded = work(2, 4, 8, [4, 0], left=0, right=0)
+    assert banded_bytes == (3 * 4 * 8 + 1 * 8 + 2 * 8 + 2 * 4 * 8) * 2
     assert banded == 3 * 2 * 4 * 8
+
+
+def test_work_backward_counts_the_rows_within_the_lengths():
+    # q, k, v, dO over 6 rows, p over 7 offsets, the biases, lse [B, H, T]
+    # f32 over 6 rows; dq, dk, dv, dp in full and the bias gradients
+    nbytes, flops = work_backward(2, 4, 8, [4, 2], n_heads=2, itemsize=2)
+    read = (4 * 6 * 8 + 7 * 8 + 2 * 8) * 2 + 6 * 2 * 4
+    written = (3 * 2 * 4 * 8 + 7 * 8 + 2 * 8) * 2
+    assert nbytes == read + written
+    assert flops == 8 * 2 * (16 + 4) * 8
+
+
+# --- a CPU model of the bf16 forward kernel's schedule (csrc/flash_mhsa.cu,
+# flash_relpos_fwd_mma_kernel) ---
+
+TQ = TK = 64  # query rows a block, key columns a tile
+WARP_ROWS = 16  # query rows a warp
+XW = 80  # window rows a warp reads
+NEG = -1e30
+
+
+def _window_scores(qv_t, win, dt):
+    """bd of one (query tile, key tile) pair as the kernel forms it: warp w
+    multiplies its 16 rows by window rows base .. base+79 (base = 48-16w),
+    rounds the 16x80 product to the compute dtype as it stages it, and
+    reads bd[i][c] at staging column c - i + 15 (= c - r + 63 - base).
+    qv_t [..., 64, D], win [..., 128, D] -> [..., 64, 64] f32."""
+    i = torch.arange(WARP_ROWS)[:, None]
+    idx = torch.arange(TK)[None, :] - i + (WARP_ROWS - 1)
+    parts = []
+    for w in range(TQ // WARP_ROWS):
+        base = (TQ - WARP_ROWS) - WARP_ROWS * w
+        raw = qv_t[..., WARP_ROWS * w:WARP_ROWS * (w + 1), :] @ win[..., base:base + XW, :].mT
+        raw = raw.to(dt).float()
+        parts.append(torch.gather(raw, -1, idx.expand(*raw.shape[:-1], TK)))
+    return torch.cat(parts, dim=-2)
+
+
+def _tile_rows(x, start, count, limit):
+    """Rows start .. start+count-1 of x [B, H, R, D], zero past limit or below 0."""
+    out = torch.zeros(*x.shape[:2], count, x.shape[-1])
+    lo, hi = max(start, 0), min(start + count, limit)
+    if hi > lo:
+        out[:, :, lo - start:hi - start] = x[:, :, lo:hi]
+    return out
+
+
+def _kernel_schedule(q, k, v, p, u, vb, lens, H, left=-1, right=-1, rate=0.0,
+                     seed=0, with_bd=False):
+    """(out [B, T, E] in q's dtype, lse [B, H, T] f32) by the kernel's steps.
+    Key tiles the kernel skips (outside the length or the band) hold only
+    masked pairs, which change nothing here, so every tile is walked."""
+    B, T, E = q.shape
+    D = E // H
+    dt = q.dtype
+    heads = lambda x: x.float().view(x.shape[0], T, H, D).transpose(1, 2)
+    qu = heads((q.float() + u.reshape(-1).float()).to(dt))
+    qv = heads((q.float() + vb.reshape(-1).float()).to(dt))
+    n = lens.to(torch.int64).clamp(0, T)
+    kv_ok = (torch.arange(T)[None, :] < n[:, None])[:, None, :, None]
+    kh, vh = heads(k) * kv_ok, heads(v) * kv_ok  # rows past the length zero-filled
+    ph = p.float().view(2 * T - 1, H, D).transpose(0, 1)[None]  # [1, H, 2T-1, D]
+    mask = _mask(T, n, left, right)  # [B, 1, T, T]
+    bits = dropout_bits(seed, B, H, T) if rate > 0.0 else None
+    scale = 1.0 / math.sqrt(D)
+    out = torch.zeros(B, H, T, D)
+    lse = torch.zeros(B, H, T)
+    bd_all = torch.zeros(B, H, T, T)
+    for t0 in range(0, T, TQ):
+        rows = min(TQ, T - t0)
+        qu_t, qv_t = (_tile_rows(x, t0, TQ, T) for x in (qu, qv))
+        m = torch.full((B, H, TQ), NEG)
+        l = torch.zeros(B, H, TQ)
+        o = torch.zeros(B, H, TQ, D)
+        for j0 in range(0, T, TK):
+            cols = min(TK, T - j0)
+            k_t, v_t = (_tile_rows(x, j0, TK, T) for x in (kh, vh))
+            g0 = (T - 1) + j0 - t0 - (TQ - 1)
+            win = _tile_rows(ph, g0, TQ + TK - 1, 2 * T - 1)
+            win = torch.cat([win, torch.zeros(1, H, 1, D)], dim=2)  # row 127, never read
+            bd = _window_scores(qv_t, win, dt)
+            bd_all[:, :, t0:t0 + rows, j0:j0 + cols] = bd[..., :rows, :cols]
+            ok = torch.zeros(B, 1, TQ, TK, dtype=torch.bool)
+            ok[..., :rows, :cols] = mask[..., t0:t0 + rows, j0:j0 + cols]
+            s = torch.where(ok, (qu_t @ k_t.mT + bd) * scale, NEG)
+            m_new = torch.maximum(m, s.amax(-1))
+            alpha = torch.exp(m - m_new)
+            ex = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * alpha + ex.sum(-1)
+            if bits is not None:
+                keep = torch.zeros(B, H, TQ, TK, dtype=torch.bool)
+                keep[..., :rows, :cols] = (bits[:, :, t0:t0 + rows, j0:j0 + cols]
+                                           <= keep_threshold(rate))
+                ex = torch.where(keep, ex, 0.0)
+            o = o * alpha[..., None] + ex.to(dt).float() @ v_t
+            m = m_new
+        inv = torch.where(l == 0, 1.0, 1.0 / l) * (1.0 / (1.0 - rate))
+        out[:, :, t0:t0 + rows] = (o * inv[..., None])[:, :, :rows]
+        lse[:, :, t0:t0 + rows] = torch.where(l > 0, m + torch.log(l), 0.0)[:, :, :rows]
+    out = out.transpose(1, 2).reshape(B, T, E).to(dt)
+    return (out, lse, bd_all) if with_bd else (out, lse)
+
+
+def _plain_lse(args, H, left, right):
+    """Each row's log-sum-exp of the plain version's masked scores (0 for
+    fully masked rows), f32."""
+    q, k, v, p, u, vb, lens = args
+    B, T, E = q.shape
+    D = E // H
+    qu = (q + u.reshape(-1)).view(B, T, H, D)
+    qv = (q + vb.reshape(-1)).view(B, T, H, D)
+    ac = torch.einsum("bthd,bshd->bhts", qu, k.view(B, T, H, D))
+    raw = torch.einsum("bthd,phd->bhtp", qv, p.view(-1, H, D))
+    t_idx = torch.arange(T)
+    shift = (T - 1) + t_idx[None, :] - t_idx[:, None]
+    bd = torch.gather(raw, 3, shift.expand(B, H, T, T))
+    mask = _mask(T, lens.to(torch.int64), left, right)
+    s = torch.where(mask, (ac + bd) / math.sqrt(D), -math.inf)
+    out = torch.logsumexp(s, dim=-1)
+    return torch.where(mask.any(-1), out, 0.0), bd
+
+
+EDGE_CASES = CASES + [
+    # T at the tile edges, with lens and a band
+    (63, 2, 16, [63, 40], (-1, -1)),
+    (64, 2, 16, [64, 0, 17], (-1, -1)),
+    (65, 1, 32, [65, 64], (-1, -1)),
+    (129, 2, 16, [129, 100], (-1, -1)),
+    (129, 2, 16, [129, 70], (30, 5)),
+]
+
+
+def _torch_args(T, H, D, lens, dt=torch.float32, seed=None):
+    args = [torch.from_numpy(a) for a in _inputs(T + 7 if seed is None else seed,
+                                                   len(lens), T, H, D, lens)]
+    return [a.to(dt) for a in args[:6]] + [args[6]]
+
+
+@pytest.mark.parametrize("T,H,D,lens,band", EDGE_CASES)
+def test_kernel_schedule_matches_plain_f32(T, H, D, lens, band):
+    args = _torch_args(T, H, D, lens)
+    left, right = band
+    out, lse, bd = _kernel_schedule(*args, H, left=left, right=right, with_bd=True)
+    ref = flash_relpos_mhsa_reference(*args, n_heads=H, left=left, right=right)
+    assert (out - ref).abs().max().item() <= ATOL
+    ref_lse, ref_bd = _plain_lse(args, H, left, right)
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    # the window index: every position score is the plain rel-shift's
+    assert (bd - ref_bd).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T,H,D,lens,band", [EDGE_CASES[i] for i in (0, 2, 6, 9)])
+def test_kernel_schedule_matches_plain_bf16(T, H, D, lens, band, rate):
+    """bf16 rounding points: q+u and q+v, the staged position scores,
+    each tile's exps before P·V; held to the card test's bf16 bar."""
+    args = _torch_args(T, H, D, lens, dt=torch.bfloat16)
+    left, right = band
+    kw = dict(left=left, right=right, rate=rate, seed=T)
+    out, _ = _kernel_schedule(*args, H, **kw)
+    ref = flash_relpos_mhsa_reference(*args, n_heads=H, left=left, right=right,
+                                      dropout_rate=rate, seed=T)
+    assert out.dtype == torch.bfloat16
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_kernel_schedule_f32_dropout_matches_plain():
+    args = _torch_args(65, 2, 16, [65, 30])
+    out, _ = _kernel_schedule(*args, 2, rate=0.1, seed=11)
+    ref = flash_relpos_mhsa_reference(*args, n_heads=2, dropout_rate=0.1, seed=11)
+    assert (out - ref).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("T,H,D,lens,band", [EDGE_CASES[i] for i in (2, 6, 9)])
+def test_kernel_schedule_matches_pallas_interpret(T, H, D, lens, band):
+    args = _torch_args(T, H, D, lens)
+    left, right = band
+    out, _ = _kernel_schedule(*args, H, left=left, right=right)
+    ref = jax_flash(
+        *(jnp.asarray(a.numpy()) for a in args), n_heads=H, left=left, right=right,
+        interpret=True,
+    )
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)

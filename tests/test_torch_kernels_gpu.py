@@ -75,7 +75,10 @@ def _flash_inputs(B, T, H, D, lens, dtype, dev):
     "B,T,H,D,band",
     [(16, 204, 8, 64, (-1, -1)), (3, 37, 8, 64, (16, 0)), (2, 1, 8, 64, (-1, -1)),
      (2, 512, 8, 64, (-1, -1)), (2, 70, 2, 32, (20, 10)), (2, 65, 4, 16, (-1, 5)),
-     (2, 129, 2, 128, (-1, -1))],
+     (2, 129, 2, 128, (-1, -1)),
+     # the 64-row tiles' edges, and a CL evaluation batch's shape
+     (2, 63, 8, 64, (-1, -1)), (2, 64, 8, 64, (-1, -1)), (2, 128, 8, 64, (-1, -1)),
+     (4, 104, 8, 64, (-1, -1))],
 )
 def test_flash_kernel_matches_plain(cuda, dtype, atol, B, T, H, D, band):
     lens = [T] + [max(0, T - 9 * i) for i in range(1, B - 1)] + ([0] if B > 1 else [])
@@ -175,6 +178,22 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda):
             with pytest.raises(RuntimeError, match="CUDA error"):
                 rnnt_greedy_decode_fused(f_big, lens, lang, model)
     assert rnnt_greedy_decode_fused.launches == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,H,D,band", [(16, 204, 8, 64, (-1, -1)), (4, 104, 8, 64, (-1, -1)),
+                                          (3, 37, 8, 64, (16, 0))])
+def test_flash_kernel_with_dropout_matches_plain_bf16(cuda, B, T, H, D, band):
+    """The bf16 forward with dropout 0.1 against the plain version drawing
+    the same bits (same seed), at the bf16 bar."""
+    lens = [T] + [max(0, T - 9 * i) for i in range(1, B - 1)] + ([0] if B > 1 else [])
+    args = _flash_inputs(B, T, H, D, lens, torch.bfloat16, cuda)
+    kw = dict(n_heads=H, left=band[0], right=band[1], dropout_rate=0.1, seed=T + 3)
+    out = flash_relpos_mhsa(*args, **kw)
+    ref = flash_relpos_mhsa_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    assert not torch.equal(out, flash_relpos_mhsa(*args, **dict(kw, dropout_rate=0.0)))
 
 
 @pytest.mark.gpu
