@@ -11,8 +11,8 @@ Phases, each of which fails the script when it fails:
    rnnt_lattice.cu: alpha and beta; joint_fused.cu: the fused joint
    forward and backward; beam_fused.cu: the fused beam) with nvcc for
    sm_90a, one nvcc per source, started together; prints ptxas's
-   registers, spills and shared memory, and the bf16 flash forward's
-   dynamic shared memory a block.
+   registers, spills and shared memory, and the bf16 flash forward's and
+   backward's dynamic shared memory a block.
 3. Kernels against their plain PyTorch versions on the card:
    flash rel-pos attention at B16 T204 E512 H8 in f32 (max abs err
    <= 1e-4) and bf16 (<= 2e-2), plus T in {1, 37, 512}, a row with
@@ -31,6 +31,9 @@ Phases, each of which fails the script when it fails:
    The flash backward against autograd through the plain version on the
    same cases, with dropout 0 and 0.1 (the same bits on both sides): max
    error per gradient <= 1e-4·max|ref| in f32 and 2e-2·max|ref| in bf16;
+   with a (0, 0) band in bf16 (dropout 0 and 0.1) the gradients of q, k,
+   p and the biases exactly zero, which holds only if the backward
+   rebuilds the forward's scores bit for bit, and dv within 2e-2·max|ref|;
    the kernels' dropout bits equal to the plain version's, keep rate
    within 5e-3 of 1 - rate; the alpha and beta lattices at B16 T204
    U+1 129 (rows with u_len 0, t_len 1, t_len < T): finite entries atol
@@ -81,7 +84,11 @@ Phases, each of which fails the script when it fails:
    backwards, 1 alpha and 1 beta. Every loss finite, the frozen parameters
    bit-unchanged, and a falling loss over 30 steps on one batch. Prints
    ms/step, utts/s, peak memory and one profiled step; then times the
-   three training kernels at the inputs the step gave them.
+   three training kernels at the inputs the step gave them, the flash
+   backward also over a CUDA graph of calls and by its profiled device
+   time, beside the backward of ``scaled_dot_product_attention`` with the
+   position scores given (a yardstick, not the same function) and the
+   atomic instructions a launch reaches (``flash_bwd_atomics``).
 7. f32 equality of one step: flagship width at 4 layers (2 frozen), B4,
    attention dropout 0.1 (the kernel's bits), SpecAugment on (bands from
    the CPU generator), the other dropouts and dither off: the step on the
@@ -234,6 +241,28 @@ def flash_timings(args, **kw):
     call = lambda: fm.flash_relpos_mhsa(*cast, **kw)
     return {"ms": cuda_ms(call), "graph_ms": cuda_graph_ms(call),
             "device_ms": device_ms(call, "flash_relpos_fwd")}
+
+
+def flash_bwd_timings(args, **kw):
+    """The flash backward at ``args`` (the wrapper's q, k, v, p, u, vb,
+    lens, lse, dout as the caller gives them), ms a call: CUDA events over
+    eager calls on ``args`` themselves (``ms``, as every kernel line: the
+    casts a caller's operands need are part of the call) and, with the
+    biases, lengths and cotangent cast to the kernel's types first, over
+    eager calls (``ms_cast``), over a CUDA graph of calls (``graph_ms``,
+    which then holds little beside the kernel) and profiled device time
+    (``device_ms``)."""
+    import torch
+
+    from indic_cl_asr_torch.ops import flash_mhsa as fm
+
+    q, k, v, p, u, vb, lens, lse, dout = args
+    cast = (q, k, v, p, u.to(q.dtype), vb.to(q.dtype), lens.to(torch.int32), lse,
+            dout.to(q.dtype).contiguous())
+    call = lambda: fm.flash_relpos_mhsa_backward(*cast, **kw)
+    return {"ms": cuda_ms(lambda: fm.flash_relpos_mhsa_backward(*args, **kw)),
+            "ms_cast": cuda_ms(call), "graph_ms": cuda_graph_ms(call),
+            "device_ms": device_ms(call, "flash_relpos_bwd")}
 
 
 def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
@@ -951,6 +980,35 @@ def time_sdpa_yardstick(q, k, v, p, u, vb, lens, n_heads):
         return cuda_ms(lambda: F.scaled_dot_product_attention(qu, kh, vh, attn_mask=bias))
 
 
+def time_sdpa_backward_yardstick(q, k, v, p, u, vb, lens, dout, n_heads):
+    """ms of the backward of one ``scaled_dot_product_attention`` call
+    (gradients of its q, k and v for ``dout``) with the position scores
+    given as its float attn_mask, as ``time_sdpa_yardstick``: a
+    yardstick for the flash backward, not the same function."""
+    import torch
+    import torch.nn.functional as F
+
+    from indic_cl_asr_torch.ops import flash_mhsa as fm
+
+    B, T, E = q.shape
+    H, D = n_heads, E // n_heads
+    heads = lambda x: x.detach().reshape(B, T, H, D).transpose(1, 2).contiguous()
+    with torch.no_grad():
+        raw = torch.einsum("bthd,phd->bhtp", (q + vb.reshape(-1).to(q.dtype)).float()
+                           .reshape(B, T, H, D), p.reshape(-1, H, D).float())
+        t_idx = torch.arange(T, device=q.device)
+        shift = (T - 1) + t_idx[None, :] - t_idx[:, None]
+        bd = torch.gather(raw, 3, shift.expand(B, H, T, T)).to(q.dtype).float()
+        mask = fm._mask(T, lens.to(torch.int64), -1, -1)
+        bias = torch.where(mask, bd / math.sqrt(D), -1e30).to(q.dtype)
+    leaves = [heads(x).requires_grad_(True)
+              for x in (q + u.reshape(-1).to(q.dtype), k, v)]
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+        g = heads(dout.to(q.dtype))
+        return cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+
+
 def eval_flash_operands(dev, tasks, tok, spec):
     """Layer 0's attention operands in the CL evaluation's encoder batches,
     one batch of each (B, T): the first eval of phase 8's run_sequence
@@ -1021,6 +1079,39 @@ def flash_mma_shared_bytes(D):
     if larger; K, V and the 128-row window)."""
     ld = D + 8
     return (max(2 * 64 * ld, 4 * 16 * 88) + (2 * 64 + 128) * ld) * 2
+
+
+def flash_bwd_mma_shared_bytes(D):
+    """Dynamic shared memory of a bf16 flash backward block at head dim D:
+    ``BwdLayout<D>::BYTES`` of csrc/flash_mhsa.cu (Qu, Qv, dO, K, V and
+    the 128-row window in rows of D + 8 halves; each warp's dS and Pd rows
+    of 72 halves; Z's 64 rows of 136 halves; 8 key tiles' keep masks of
+    the 128 threads, 4 bytes each)."""
+    return ((3 * 64 + 2 * 64 + 128) * (D + 8) + 4 * 2 * 16 * 72 + 64 * 136) * 2 + 8 * 128 * 4
+
+
+def flash_bwd_atomics(T, lens, n_heads, D, left=-1, right=-1):
+    """Atomic instructions one backward launch reaches (before the kernels
+    skip adding zeros), from its grid: {"scalar": the design of the scalar
+    kernel (flash_relpos_bwd_kernel, the f32 backward): one f32 atomicAdd
+    an element, dk and dv per key row of every tile pair, dp per row of
+    each tile pair's 127-row window; "mma": the bf16 kernel's, one 16-byte
+    reduction per four elements, dk and dv per key row of every tile pair,
+    dp per window row once a block (the window's lower 64 rows after each
+    tile, all 128 after the last)}."""
+    scalar = mma = 0
+    for n in (max(0, min(int(x), T)) for x in lens):
+        for t0 in range(0, n, 64):
+            j_lo = max(0, t0 - left) if left >= 0 else 0
+            j_hi = min(n, t0 + 64 + right) if right >= 0 else n
+            tiles = list(range((j_lo // 64) * 64, j_hi, 64))
+            for i, j0 in enumerate(tiles):
+                g0 = (T - 1) + j0 - t0 - 63
+                rows = min(64, n - j0)
+                in_range = lambda a, b: sum(1 for g in range(g0 + a, g0 + b) if 0 <= g < 2 * T - 1)
+                scalar += 2 * rows * D + in_range(0, 127) * D
+                mma += 2 * rows * D // 4 + in_range(0, 128 if i == len(tiles) - 1 else 64) * D // 4
+    return {"scalar": scalar * n_heads, "mma": mma * n_heads}
 
 
 def ptxas_lines(source, kernel, by_dim=False):
@@ -1135,6 +1226,27 @@ def check_flash_backward(dev, rec):
                 if not (worst <= tol):
                     raise AssertionError(f"flash backward {tag}: {worst} > {tol}")
     rec["flash_backward_rel_errors"] = errs
+    # a (0, 0) band: each row sees its own key alone, so the forward's lse
+    # is that key's score; the bf16 backward rebuilds the forward's scores
+    # bit for bit, so P = exp(s - lse) = 1, dS = 0, and the gradients of
+    # q, k, p and the biases are exactly zero (dv is P·dO)
+    for rate in (0.0, 0.1):
+        args = flash_inputs(4, 204, 8, 64, [204, 150, 1, 0], torch.bfloat16, dev, seed=31)
+        kw = dict(n_heads=8, left=0, right=0, dropout_rate=rate, seed=17)
+        leaves = [a.detach().requires_grad_(True) for a in args[:6]]
+        out = flash_relpos_mhsa(*leaves, args[6], **kw)
+        dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(5)).to(dev, torch.bfloat16)
+        got = torch.autograd.grad(out, leaves, dout)
+        want = flash_relpos_mhsa_backward_reference(*args, dout, **kw)
+        torch.cuda.synchronize()
+        nonzero = {name: int(torch.count_nonzero(g)) for name, g in
+                   zip(("q", "k", "v", "p", "bias_u", "bias_v"), got) if name != "v"}
+        dv_err = grad_err(got[2], want[2], dout)
+        log(f"  flash backward band(0,0) bf16 drop {rate}: nonzero entries {nonzero} "
+            f"(all must be 0), dv err / max|ref| {dv_err:.3e}")
+        if any(nonzero.values()) or not dv_err <= 2e-2:
+            raise AssertionError(f"flash backward band(0,0) drop {rate}: {nonzero}, dv {dv_err}")
+        rec[f"flash_backward_band00_drop{rate}"] = {"nonzero": nonzero, "dv_rel_err": dv_err}
     bits = flash_dropout_bits_kernel(987654321, 16, 8, 204, dev)
     want = dropout_bits(987654321, 16, 8, 204, dev)
     keep = (bits <= keep_threshold(0.1)).double().mean().item()
@@ -1575,23 +1687,35 @@ def time_training_kernels(captured, launches, rec):
     got = fm.flash_relpos_mhsa_backward(*args, **kw)
     want = fm.flash_relpos_mhsa_backward_reference(q, k, v, p, u, vb, lens, dout, **kw)
     err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
-    ms = cuda_ms(lambda: fm.flash_relpos_mhsa_backward(*args, **kw))
+    times = flash_bwd_timings(args, **kw)
+    ms = times["ms"]
     plain = cuda_ms(lambda: fm.flash_relpos_mhsa_backward_reference(
         q, k, v, p, u, vb, lens, dout, **kw), iters=5)
     nbytes, flops = fm.work_backward(B, T, E, lens.cpu(), kw["n_heads"],
                                      itemsize=q.element_size())
     b_ms, b_by = bound_ms(nbytes, flops)
+    sdpa_ms = time_sdpa_backward_yardstick(q, k, v, p, u, vb, lens, dout, kw["n_heads"])
+    atomics = flash_bwd_atomics(T, lens.tolist(), kw["n_heads"], E // kw["n_heads"])
+    rec["flash_backward_training_shapes"] = {
+        **times, "sdpa_backward_ms": sdpa_ms, "atomics": atomics,
+        "dropout_rate": kw["dropout_rate"],
+        "sdpa_is": ("scaled_dot_product_attention's backward, position scores given as its "
+                    "float attn_mask (not the same function)")}
     lines.append({
         "name": "flash_relpos_mhsa_backward", "route": "cuda",
         "source": "indic_cl_asr_torch/csrc/flash_mhsa.cu",
         "replaces": "indic_cl_asr_tpu/ops/flash_mhsa.py:416",
         "launches": launches["flash_relpos_mhsa_backward"], "max_abs_err": err,
         "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None,
+        "library_ms": None, "graph_ms": times["graph_ms"], "device_ms": times["device_ms"],
     })
-    log(f"  flash backward B{B} T{T} E{E} bf16 (dropout {kw['dropout_rate']}): {ms:.4f} ms, "
-        f"plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {nbytes} B, {flops} flop), "
-        f"err {err:.3e}")
+    log(f"  flash backward B{B} T{T} E{E} bf16 (dropout {kw['dropout_rate']}): {ms:.4f} ms "
+        f"(CUDA events over eager calls; on operands cast first {times['ms_cast']:.4f}, "
+        f"over a graph of calls {times['graph_ms']:.4f}, "
+        f"profiled device time {times['device_ms']:.4f}), plain {plain:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {nbytes} B, {flops} flop), err {err:.3e}; SDPA's "
+        f"backward with the position scores given {sdpa_ms:.4f} ms; atomics a launch "
+        f"{atomics}")
     # the forward at the same operands with the step's dropout, for PERF's row 1
     with torch.no_grad():
         drop = flash_timings((q, k, v, p, u, vb, lens), **kw)
@@ -2131,6 +2255,12 @@ def main() -> int:
     log(f"  flash forward (bf16 on mma.sync, 128 threads a block): ptxas "
         f"{rec['flash_forward_build']['ptxas']}; dynamic shared memory a block "
         f"{rec['flash_forward_build']['dynamic_shared_bytes']}")
+    rec["flash_backward_build"] = {
+        "ptxas": ptxas_lines("flash_mhsa", "flash_relpos_bwd_mma_kernel", by_dim=True),
+        "dynamic_shared_bytes": {f"D{d}": flash_bwd_mma_shared_bytes(d) for d in (16, 32, 64)}}
+    log(f"  flash backward (bf16 on mma.sync, 128 threads a block): ptxas "
+        f"{rec['flash_backward_build']['ptxas']}; dynamic shared memory a block "
+        f"{rec['flash_backward_build']['dynamic_shared_bytes']}")
 
     log("[3/8] kernels vs plain versions on the card")
     check_flash(dev, rec)

@@ -26,22 +26,25 @@ and the plain version computes the very same bits, so kernel and plain
 version agree with dropout on.
 
 The kernels (``csrc/flash_mhsa.cu``): one block per (64-row query tile,
-head, batch row) walking 64-wide key tiles with an online softmax; the
-rel-shift reads only a 127-row window of ``p`` per tile pair, so T is not
-padded and has no cap. In bf16 the forward runs on the tensor cores
-(``mma.sync.m16n8k16``, f32 sums): 4 warps of 16 query rows over bf16
-tiles in shared memory; each warp computes the 16x80 product of its rows
-with the window rows it needs, rounds it to bf16 into shared memory (the
-position score's one rounding) and reads each score back at its skewed
-column; softmax statistics stay in registers and P goes to the P·V
-product as bf16 register fragments. In f32 the forward computes with
-scalar FMAs from shared memory. Both keep each row's log-sum-exp for the
-backward, which rebuilds the probabilities tile by tile with scalar f32
-FMAs (a first walk over the keys sums rowsum(dP∘P), a second the
-gradients), keeps dq in registers and adds dk, dv and dp (summed over
-the batch) with f32 atomics. At flagship shapes (B16 T204 E512 H8 bf16)
-both are below the card's bf16 ridge, so the bytes bound them (about
-4 µs forward, 9 µs backward).
+head, batch row) walking 64-wide key tiles; the rel-shift reads only a
+127-row window of ``p`` per tile pair, so T is not padded and has no cap.
+In bf16 both directions run on the tensor cores (``mma.sync.m16n8k16``,
+f32 sums): 4 warps of 16 query rows over bf16 tiles in shared memory.
+Both rebuild the scores through one device function: each warp computes
+the 16x80 product of its rows with the window rows it needs, rounds it to
+bf16 into shared memory (the position score's one rounding) and reads
+each score back at its skewed column. The forward keeps its softmax
+statistics in registers and sends P to the P·V product as bf16 register
+fragments; it stores each row's log-sum-exp. The backward rebuilds
+P = exp(s - lse) from the very same scores, walks the key tiles twice (a
+first walk sums rowsum(dP∘P), a second forms dS, rounded to bf16 once,
+and runs dQu, dQv, dK, dV and dp on the tensor cores, dp through dS
+written skewed into a buffer, the transpose of the forward's staging),
+keeps dq in registers and adds dk, dv and dp (summed over the batch) into
+f32 with 16-byte atomic reductions, dp once per window row and block. In
+f32 both directions compute with scalar FMAs from shared memory. At
+flagship shapes (B16 T204 E512 H8 bf16) both are below the card's bf16
+ridge, so the bytes bound them (about 3 µs forward, 6 µs backward).
 """
 
 from __future__ import annotations
@@ -56,7 +59,9 @@ from . import _build
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
-_BWD_HEAD_DIMS = (16, 32, 64)  # the backward's tiles for D=128 overflow shared memory
+# the backward at D=128: the bf16 kernel's register accumulators (dq and
+# the held dp window) and the f32 kernel's shared tiles would overflow
+_BWD_HEAD_DIMS = (16, 32, 64)
 _M32 = 0xFFFFFFFF
 
 
@@ -166,6 +171,12 @@ def _check_cuda(q, k, v, p, n_heads, dims):
             raise TypeError(f"{name} must be {dt} on {q.device}")
 
 
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """t in ``dtype``, without a dispatch where it already is (the
+    backward wrapper's host time is most of an eager call)."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """t contiguous and 16-byte aligned (a copy where it is not)."""
     t = t.contiguous()
@@ -230,33 +241,37 @@ def flash_relpos_mhsa_backward(
     B, T, E = q.shape
     dt = q.dtype
     D = E // n_heads
-    q, k, v, p = (t.contiguous() for t in (q, k, v, p))
-    dout = dout.to(dt).contiguous()
-    bu = bias_u.reshape(-1).to(dt).contiguous()
-    bv = bias_v.reshape(-1).to(dt).contiguous()
-    lens_i = lens.to(device=q.device, dtype=torch.int32).contiguous()
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dqu = torch.empty((B, T, E), **f32)
-    dqv = torch.empty((B, T, E), **f32)
-    dk = torch.zeros((B, T, E), **f32)
-    dv = torch.zeros((B, T, E), **f32)
-    dp = torch.zeros((2 * T - 1, E), **f32)
+    # the bf16 kernel copies 16-byte chunks of every operand
+    q, k, v, p = (_aligned(t) for t in (q, k, v, p))
+    dout = _aligned(_as(dout, dt))
+    bu = _aligned(_as(bias_u, dt))  # [H, D], read flat
+    bv = _aligned(_as(bias_v, dt))
+    ok = lens.dtype == torch.int32 and lens.device == q.device and lens.is_contiguous()
+    lens_i = lens if ok else lens.to(q.device, torch.int32).contiguous()
+    # the launch zeroes an f32 scratch, the kernel writes dq and adds dk,
+    # dv, dp and the two bias gradients (dqu's and dqv's column sums) into
+    # the scratch, and a second kernel writes those to their outputs. Each
+    # output is allocated in its own shape and pointers and scalars go to
+    # ctypes as plain ints and floats: the wrapper's host time is most of
+    # an eager call, and a view costs about as much as an allocation.
+    acc = torch.empty(2 * B * T * E + (2 * T - 1) * E + 2 * E, dtype=torch.float32,
+                      device=q.device)
+    dq, dk, dv, dp = (torch.empty_like(t) for t in (q, k, v, p))
+    d_bu, d_bv = (torch.empty((n_heads, D), dtype=torch.float32, device=q.device)
+                  for _ in range(2))
     lib = _build.load("flash_mhsa")
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    ptr = _build.ptr
     err = lib.flash_relpos_bwd(
-        ptr(q), ptr(k), ptr(v), ptr(p), ptr(bu), ptr(bv), ptr(lens_i),
-        ptr(dout), ptr(lse), ptr(dqu), ptr(dqv), ptr(dk), ptr(dv),
-        ptr(dp), B, T, n_heads, D, int(left), int(right),
-        ctypes.c_float(1.0 / math.sqrt(D)), *_drop_args(dropout_rate, seed),
-        _DTYPES[dt], ctypes.c_void_p(stream),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(), bu.data_ptr(),
+        bv.data_ptr(), lens_i.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dp.data_ptr(), d_bu.data_ptr(),
+        d_bv.data_ptr(), acc.data_ptr(), B, T, n_heads, D,
+        int(left), int(right), 1.0 / math.sqrt(D), *_drop_args(dropout_rate, seed),
+        _DTYPES[dt], stream,
     )
     _build.check(lib, err, "flash_relpos_bwd")
     flash_relpos_mhsa_backward.launches += 1
-    dq = (dqu + dqv).to(dt)
-    d_bu = dqu.sum(dim=(0, 1)).view(n_heads, D).to(bias_u.dtype)
-    d_bv = dqv.sum(dim=(0, 1)).view(n_heads, D).to(bias_v.dtype)
-    return dq, dk.to(k.dtype), dv.to(v.dtype), dp.to(p.dtype), d_bu, d_bv
+    return dq, dk, dv, dp, _as(d_bu, bias_u.dtype), _as(d_bv, bias_v.dtype)
 
 
 def flash_relpos_mhsa_backward_reference(
@@ -357,7 +372,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     vp, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
     lib.flash_relpos_fwd.argtypes = [vp] * 9 + [i] * 6 + [f, u, u, f, i, i, vp]
     lib.flash_relpos_fwd.restype = i
-    lib.flash_relpos_bwd.argtypes = [vp] * 14 + [i] * 6 + [f, u, u, f, i, i, vp]
+    lib.flash_relpos_bwd.argtypes = [vp] * 16 + [i] * 6 + [f, u, u, f, i, i, vp]
     lib.flash_relpos_bwd.restype = i
     lib.flash_dropout_bits.argtypes = [u, i, i, i, vp, vp]
     lib.flash_dropout_bits.restype = i
@@ -397,8 +412,9 @@ def work_backward(B: int, T: int, E: int, lens, n_heads: int, left: int = -1,
     rows; dq, dk, dv and dp written once in full, and the two bias
     gradients; per visible pair the two score dots, dO·v, and the five
     products dqu, dqv, dk, dv, dp (eight dot products of length D; the
-    kernel's second walk over the keys repeats three of them, which the
-    bound does not count)."""
+    kernels' second walk over the keys repeats three of them, and the
+    bf16 kernel's tiles run masked pairs too, which the bound does not
+    count)."""
     rows, p_rows, visible = _needed(T, lens, left, right)
     nbytes = (4 * rows * E + p_rows * E + 2 * E) * itemsize + rows * n_heads * 4
     nbytes += (3 * B * T * E + (2 * T - 1) * E + 2 * E) * itemsize

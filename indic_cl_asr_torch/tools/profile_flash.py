@@ -1,4 +1,4 @@
-"""Time the flash rel-pos attention forward on the card, for any checkout.
+"""Time the flash rel-pos attention on the card, for any checkout.
 
     python3 indic_cl_asr_torch/tools/profile_flash.py [ROOT]
 
@@ -12,7 +12,14 @@ flagship model). Each is timed three ways (``chip_smoke.py``'s
 ``flash_timings``): CUDA events over eager calls, CUDA events over a CUDA
 graph of calls (no host time between launches), and the kernel's device
 time from torch.profiler; with the max abs error against the plain
-version (``chip_smoke.py`` gives the bounds). The procedure is this
+version (``chip_smoke.py`` gives the bounds). Then the backward at the
+flagship case, without and with dropout 0.1, the row statistics from the
+same checkout's forward and a seeded cotangent, the biases in f32 as the
+training step passes them (its parameters), timed as
+``chip_smoke.py``'s ``flash_bwd_timings`` times it (eager on those
+operands, and on operands cast first eager, over a graph and on the
+device), with each gradient's max error over max|ref| against the plain
+version's autograd. The procedure is this
 checkout's, so two checkouts are measured the same way: run it for each,
 in turns, on one card. Prints one JSON line. Needs a CUDA card; exits 2
 without one.
@@ -63,6 +70,22 @@ def main() -> int:
                    - fm.flash_relpos_mhsa_reference(*args, **kw).float()).abs().max().item()
             out[name] = {**cs.flash_timings(args, **kw), "max_abs_err": err,
                          "shape": list(q.shape), "lens": lens.tolist()}
+    for name in ("B16 T204", "B16 T204 dropout 0.1"):
+        args, rate = cases[name]
+        kw = dict(n_heads=8, dropout_rate=rate, seed=5)
+        q, lens = args[0], args[6]
+        cast = (*args[:4], args[4].to(q.dtype), args[5].to(q.dtype), lens)
+        with torch.no_grad():
+            _, lse = fm._launch_fwd(*cast, 8, -1, -1, rate, 5, need_lse=True)
+        dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(dev, q.dtype)
+        step = (*args[:4], args[4].float(), args[5].float(), lens)  # the step's bias dtype
+        got = fm.flash_relpos_mhsa_backward(*step, lse, dout, **kw)
+        want = fm.flash_relpos_mhsa_backward_reference(*step, dout, **kw)
+        errs = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                for a, b in zip(got, want)]
+        out[f"backward {name}"] = {**cs.flash_bwd_timings((*step, lse, dout), **kw),
+                                   "max_rel_err": max(errs), "shape": list(q.shape),
+                                   "lens": lens.tolist()}
     print(json.dumps(out), flush=True)
     return 0
 

@@ -14,10 +14,22 @@ kernel in interpret mode: in f32 to atol 1e-5 (outputs and the row
 log-sum-exps), in bf16 to the card's bar of 2e-2 (the kernel rounds each
 tile's exps before P·V, the plain version the normalised probabilities),
 and its position scores to the plain version's rel-shift exactly in f32.
+
+A CPU model of the bf16 backward kernel's schedule (``_bwd_schedule``: the
+same tiles and scores, a first walk summing delta = rowsum(dP∘P), dS
+rounded to the compute dtype once, dS written skewed into the Z buffer
+with its zero band, dQv = Z·Win per warp, dp from Zᵀ·Qv over each block's
+window held across the key walk, dK and dV from the staged tiles) is held
+against the plain version's autograd and ``jax.vjp`` of the JAX
+package's Pallas kernel in interpret mode: in f32 to atol 1e-5, in bf16 to
+the card's bar of 2e-2 of max|ref| with and without dropout; with a
+(0, 0) band (one key a row, P exactly 1) its dqu, dqv, dk and dp are
+exactly zero, as the card test asks of the kernel.
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +39,7 @@ from indic_cl_asr_tpu.ops.flash_mhsa import flash_relpos_mhsa as jax_flash
 from indic_cl_asr_tpu.ops.flash_mhsa import relpos_attention_reference
 from indic_cl_asr_torch.ops.flash_mhsa import (
     _aligned,
+    flash_relpos_mhsa_backward_reference,
     _mask,
     dropout_bits,
     flash_relpos_mhsa,
@@ -318,3 +331,183 @@ def test_kernel_schedule_matches_pallas_interpret(T, H, D, lens, band):
         interpret=True,
     )
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
+
+
+# --- a CPU model of the bf16 backward kernel's schedule (csrc/flash_mhsa.cu,
+# flash_relpos_bwd_mma_kernel) ---
+
+WR = 128  # window rows a key tile: the 127 the rel-shift reads, and one never read
+
+
+def _bwd_schedule(q, k, v, p, u, vb, lens, dout, lse, H, left=-1, right=-1, rate=0.0,
+                  seed=0):
+    """(dq, dk, dv, dp, d_bias_u, d_bias_v) by the bf16 backward kernel's
+    steps, for the forward's row log-sum-exps ``lse`` [B, H, T]. Per
+    (64-row query tile, batch row, head): the forward's scores
+    (``_window_scores``), P = exp(s - lse), dP = keep ? dO·Vᵀ/(1-rate) : 0;
+    a first walk over the key tiles sums delta; the second rounds
+    dS = P (dP - delta) scale to the compute dtype once, writes it skewed
+    into Z [64, 128] (Z[r][w] = dS[r][w + r - 63], 0 off the band), and
+    adds dQu = dS·K, dQv = Z·Win over each warp's 80 window rows, dK =
+    dSᵀ·Qu, dV = Pdᵀ·dO (Pd rounded) and Zᵀ·Qv into the block's window of
+    dp, whose lower half goes to dp after each tile (no later tile reaches
+    it) and whose whole goes after the last. Every key tile is walked:
+    those the kernel skips hold only masked pairs, which add zeros."""
+    B, T, E = q.shape
+    D = E // H
+    dt = q.dtype
+    heads = lambda x: x.float().view(x.shape[0], T, H, D).transpose(1, 2)
+    qu = heads((q.float() + u.reshape(-1).float()).to(dt))
+    qv = heads((q.float() + vb.reshape(-1).float()).to(dt))
+    n = lens.to(torch.int64).clamp(0, T)
+    kv_ok = (torch.arange(T)[None, :] < n[:, None])[:, None, :, None]
+    kh, vh = heads(k) * kv_ok, heads(v) * kv_ok  # rows past the length zero-filled
+    doh = heads(dout.to(dt))
+    ph = p.float().view(2 * T - 1, H, D).transpose(0, 1)[None]
+    mask = _mask(T, n, left, right)
+    bits = dropout_bits(seed, B, H, T) if rate > 0.0 else None
+    scale, dscale = 1.0 / math.sqrt(D), 1.0 / (1.0 - rate)
+    # Z's column of dS[r][c]
+    zcol = torch.arange(TK)[None, :] - torch.arange(TQ)[:, None] + (TQ - 1)
+    dqu, dqv, dk, dv = (torch.zeros(B, H, T, D) for _ in range(4))
+    dp = torch.zeros(H, 2 * T - 1, D)
+
+    def add_window(rows, g0):
+        for x in range(rows.shape[2]):
+            if 0 <= g0 + x < 2 * T - 1:
+                dp[:, g0 + x] += rows[:, :, x].sum(0)
+
+    for t0 in range(0, T, TQ):
+        rows = min(TQ, T - t0)
+        qu_t, qv_t, do_t = (_tile_rows(x, t0, TQ, T) for x in (qu, qv, doh))
+        lse_t = torch.zeros(B, H, TQ)
+        lse_t[..., :rows] = lse[..., t0:t0 + rows]
+
+        def probs(j0):
+            cols = min(TK, T - j0)
+            k_t, v_t = (_tile_rows(x, j0, TK, T) for x in (kh, vh))
+            g0 = (T - 1) + j0 - t0 - (TQ - 1)
+            win = _tile_rows(ph, g0, TQ + TK - 1, 2 * T - 1)
+            win = torch.cat([win, torch.zeros(1, H, 1, D)], dim=2)  # row 127, never read
+            ok = torch.zeros(B, 1, TQ, TK, dtype=torch.bool)
+            ok[..., :rows, :cols] = mask[..., t0:t0 + rows, j0:j0 + cols]
+            s = torch.where(ok, (qu_t @ k_t.mT + _window_scores(qv_t, win, dt)) * scale, NEG)
+            P = torch.where(ok, torch.exp(s - lse_t[..., None]), 0.0)
+            keep = torch.ones(B, H, TQ, TK, dtype=torch.bool)
+            if bits is not None:
+                keep[..., :rows, :cols] = (bits[:, :, t0:t0 + rows, j0:j0 + cols]
+                                           <= keep_threshold(rate))
+            dP = torch.where(keep, (do_t @ v_t.mT) * dscale, 0.0)
+            Pd = torch.where(keep, P * dscale, 0.0)
+            return cols, k_t, win, g0, P, dP, Pd
+
+        delta = torch.zeros(B, H, TQ)
+        for j0 in range(0, T, TK):
+            _, _, _, _, P, dP, _ = probs(j0)
+            delta += (dP * P).sum(-1)
+        held = torch.zeros(B, H, WR, D)
+        for j0 in range(0, T, TK):
+            cols, k_t, win, g0, P, dP, Pd = probs(j0)
+            dS = (P * (dP - delta[..., None]) * scale).to(dt).float()
+            Z = torch.zeros(B, H, TQ, WR).scatter_(-1, zcol.expand(B, H, TQ, TK), dS)
+            dqu[:, :, t0:t0 + rows] += (dS @ k_t)[..., :rows, :]
+            for w in range(TQ // WARP_ROWS):
+                base = (TQ - WARP_ROWS) - WARP_ROWS * w
+                r0 = WARP_ROWS * w
+                part = Z[..., r0:r0 + WARP_ROWS, base:base + XW] @ win[..., base:base + XW, :]
+                dqv[:, :, t0 + r0:t0 + min(rows, r0 + WARP_ROWS)] += part[..., :max(0, rows - r0), :]
+            dk[:, :, j0:j0 + cols] += (dS.mT @ qu_t)[..., :cols, :]
+            dv[:, :, j0:j0 + cols] += (Pd.to(dt).float().mT @ do_t)[..., :cols, :]
+            held += Z.mT @ qv_t
+            if j0 + TK >= T:
+                add_window(held, g0)
+            else:
+                add_window(held[:, :, :TQ], g0)
+                held = torch.cat([held[:, :, TQ:], torch.zeros(B, H, TQ, D)], dim=2)
+    flat = lambda x: x.transpose(1, 2).reshape(B, T, E)
+    dq = flat(dqu + dqv).to(dt)
+    return (dq, flat(dk).to(dt), flat(dv).to(dt), dp.transpose(0, 1).reshape(2 * T - 1, E).to(dt),
+            dqu.sum((0, 2)).to(dt), dqv.sum((0, 2)).to(dt))
+
+
+def _bwd_args(T, H, D, lens, dt=torch.float32):
+    args = _torch_args(T, H, D, lens, dt=dt)
+    rng = np.random.default_rng(T + 11)
+    dout = torch.from_numpy(rng.standard_normal((len(lens), T, H * D)).astype(np.float32))
+    return args, dout.to(dt)
+
+
+def _rel_err(got, want, dout):
+    """Max abs error over max|ref|, floored at 1% of max|dout| for
+    gradients that vanish in exact arithmetic (the card tests' measure)."""
+    scale = max(want.float().abs().max().item(), 0.01 * dout.float().abs().max().item())
+    return (got.float() - want.float()).abs().max().item() / scale
+
+
+@pytest.mark.parametrize("T,H,D,lens,band", EDGE_CASES)
+def test_bwd_schedule_matches_plain_f32(T, H, D, lens, band):
+    args, dout = _bwd_args(T, H, D, lens)
+    left, right = band
+    _, lse = _kernel_schedule(*args, H, left=left, right=right)
+    got = _bwd_schedule(*args, dout, lse, H, left=left, right=right)
+    want = flash_relpos_mhsa_backward_reference(*args, dout, n_heads=H, left=left, right=right)
+    for name, g, w in zip(("q", "k", "v", "p", "bias_u", "bias_v"), got, want):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max().item() <= ATOL, name
+
+
+@pytest.mark.parametrize("T,H,D,lens,band", [EDGE_CASES[i] for i in (2, 6, 9)])
+def test_bwd_schedule_matches_pallas_interpret(T, H, D, lens, band):
+    args, dout = _bwd_args(T, H, D, lens)
+    left, right = band
+    _, lse = _kernel_schedule(*args, H, left=left, right=right, rate=0.0)
+    got = _bwd_schedule(*args, dout, lse, H, left=left, right=right)
+    ln = jnp.asarray(args[6].numpy())
+
+    def f(*x):
+        return jax_flash(*x, ln, n_heads=H, left=left, right=right, interpret=True)
+
+    leaves = [jnp.asarray(a.numpy()) for a in args[:6]]
+    want = jax.vjp(f, *leaves)[1](jnp.asarray(dout.numpy()))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("T,H,D,lens,band", [EDGE_CASES[i] for i in (0, 2, 6, 9)])
+def test_bwd_schedule_matches_plain_bf16(T, H, D, lens, band, rate):
+    """bf16 rounding points: the forward's scores, dS once, Pd for dV;
+    held to the card test's bar of 2e-2 of max|ref|."""
+    args, dout = _bwd_args(T, H, D, lens, dt=torch.bfloat16)
+    left, right = band
+    kw = dict(left=left, right=right, rate=rate, seed=T)
+    _, lse = _kernel_schedule(*args, H, **kw)
+    got = _bwd_schedule(*args, dout, lse, H, **kw)
+    want = flash_relpos_mhsa_backward_reference(*args, dout, n_heads=H, left=left,
+                                                right=right, dropout_rate=rate, seed=T)
+    for name, g, w in zip(("q", "k", "v", "p", "bias_u", "bias_v"), got, want):
+        assert g.dtype == w.dtype == torch.bfloat16, name
+        assert _rel_err(g, w, dout) <= 2e-2, name
+
+
+def test_bwd_schedule_f32_dropout_matches_plain():
+    args, dout = _bwd_args(65, 2, 16, [65, 30])
+    _, lse = _kernel_schedule(*args, 2, rate=0.1, seed=11)
+    got = _bwd_schedule(*args, dout, lse, 2, rate=0.1, seed=11)
+    want = flash_relpos_mhsa_backward_reference(*args, dout, n_heads=2, dropout_rate=0.1, seed=11)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= ATOL
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bwd_schedule_band_00_gives_exact_zeros_bf16(rate):
+    """One visible key a row: the forward's lse is that key's score, so
+    P = exp(s - lse) = 1 exactly, delta = dP and dS = 0: dq, dk, dp and the
+    bias gradients vanish exactly, dv does not."""
+    args, dout = _bwd_args(129, 2, 16, [129, 70, 0], dt=torch.bfloat16)
+    kw = dict(left=0, right=0, rate=rate, seed=3)
+    _, lse = _kernel_schedule(*args, 2, **kw)
+    dq, dk, dv, dp, dbu, dbv = _bwd_schedule(*args, dout, lse, 2, **kw)
+    for g in (dq, dk, dp, dbu, dbv):
+        assert not g.any()
+    assert dv.float().abs().max().item() > 0.1

@@ -229,6 +229,55 @@ def test_flash_backward_matches_plain_autograd(cuda, dtype, rtol, rate, B, T, H,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("band", [(-1, -1), (16, 0), (-1, 3)])
+@pytest.mark.parametrize("T", [1, 37, 63, 64, 65, 129, 204, 512, 576])
+def test_flash_backward_mma_bf16_matches_plain_autograd(cuda, T, band, rate):
+    """The bf16 backward on the tensor cores (flash_relpos_bwd_mma_kernel)
+    at the tile edges, rows of length 0 and 1, bands, with dropout (T 576:
+    nine key tiles, past the eight whose keep masks the first walk keeps)."""
+    B, H, D = 4, 8, 64
+    lens = [T, max(1, T - 13), 1, 0]
+    args = _flash_inputs(B, T, H, D, lens, torch.bfloat16, cuda)
+    kw = dict(n_heads=H, left=band[0], right=band[1], dropout_rate=rate, seed=T + 5)
+    leaves = [a.detach().requires_grad_(True) for a in args[:6]]
+    out = flash_relpos_mhsa(*leaves, args[6], **kw)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(T + 1)).to(cuda, torch.bfloat16)
+    got = torch.autograd.grad(out, leaves, dout)
+    want = flash_relpos_mhsa_backward_reference(*args, dout, **kw)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("q", "k", "v", "p", "bias_u", "bias_v"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g.float()).all(), name
+        scale = max(w.float().abs().max().item(), 0.01 * dout.float().abs().max().item())
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * scale, (name, err, scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_backward_mma_rebuilds_the_forwards_scores(cuda, rate):
+    """With a (0, 0) band every row sees its own key alone, so the
+    forward's lse is that key's score and P = exp(s - lse) is exactly 1
+    if the backward rebuilds the forward's scores bit for bit: then
+    dS = 0 and dq, dk, dp and the bias gradients are exactly zero in bf16,
+    while dv is P·dO."""
+    B, T, H, D = 3, 204, 8, 64
+    args = _flash_inputs(B, T, H, D, [T, 150, 1], torch.bfloat16, cuda)
+    kw = dict(n_heads=H, left=0, right=0, dropout_rate=rate, seed=9)
+    leaves = [a.detach().requires_grad_(True) for a in args[:6]]
+    out = flash_relpos_mhsa(*leaves, args[6], **kw)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(cuda, torch.bfloat16)
+    dq, dk, dv, dp, dbu, dbv = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    for name, g in (("q", dq), ("k", dk), ("p", dp), ("bias_u", dbu), ("bias_v", dbv)):
+        assert not g.any(), name
+    want = flash_relpos_mhsa_backward_reference(*args, dout, **kw)[2]
+    scale = want.float().abs().max().item()
+    assert scale > 0 and (dv.float() - want.float()).abs().max().item() <= 2e-2 * scale
+
+
+@pytest.mark.gpu
 def test_flash_dropout_bits_match_plain(cuda):
     bits = flash_dropout_bits_kernel(987654321, 3, 8, 61, cuda)
     want = dropout_bits(987654321, 3, 8, 61, cuda)
