@@ -12,17 +12,20 @@ Phases, each of which fails the script when it fails:
    forward and backward; beam_fused.cu: the fused beam) with nvcc for
    sm_90a, one nvcc per source, started together; prints ptxas's
    registers, spills and shared memory, and the bf16 flash forward's and
-   backward's dynamic shared memory a block.
+   backward's dynamic shared memory a block (and the scalar backward's
+   ptxas lines: f32, and bf16 at head dim 128).
 3. Kernels against their plain PyTorch versions on the card:
    flash rel-pos attention at B16 T204 E512 H8 in f32 (max abs err
    <= 1e-4) and bf16 (<= 2e-2), plus T in {1, 37, 512}, a row with
-   lens=0 and a (16, 0) band; the fused greedy decode (a cluster of
+   lens=0, a (16, 0) band, head dim 128 (E512 H4) and head dim 80 (run
+   zero-padded to 128); the fused greedy decode (a cluster of
    blocks per row) at flagship widths
    (B16, T 204 and 300 in one language, and T 204 with the rows spread
    over the 12 languages; four draws each), token-exact in f32, and in
    bf16 at least 90% of the plain version's tokens reproduced before
    their row's first divergence (see check_decode for why tokens). The
-   fused beam (B16 K4 P4, max_expansions 10, max_out 256) on the same
+   fused beam (a cluster of blocks per row; B16 K4 P4, max_expansions
+   10, max_out 256) on the same
    cases plus a lens-0 row beside rows capped by max_out 16, and beam 1:
    in f32 ids and lens equal and scores within 1e-5·|score| in every row
    but those where the plain version's trace shows two competing
@@ -288,6 +291,19 @@ def flash_inputs(B, T, H, D, lens, dtype, dev, seed):
     return ts + [torch.tensor(lens, dtype=torch.int32, device=dev)]
 
 
+# phase 3's flash cases: (name, B, T, lens, band, heads, head dim); D 128
+# (d_model 512 in 4 heads) and D 80, which runs zero-padded to 128
+FLASH_CASES = [
+    ("B16 T204 E512 H8", 16, 204, FLASH_LENS, (-1, -1), 8, 64),
+    ("T1", 2, 1, [1, 0], (-1, -1), 8, 64),
+    ("T37", 3, 37, [37, 20, 0], (-1, -1), 8, 64),
+    ("T512", 2, 512, [512, 300], (-1, -1), 8, 64),
+    ("band(16,0)", 4, 204, [204, 150, 17, 0], (16, 0), 8, 64),
+    ("B4 T204 E512 H4 D128", 4, 204, [204, 150, 17, 0], (-1, -1), 4, 128),
+    ("B3 T70 E320 H4 D80 padded", 3, 70, [70, 41, 0], (20, 10), 4, 80),
+]
+
+
 def check_flash(dev, rec):
     import torch
 
@@ -296,19 +312,12 @@ def check_flash(dev, rec):
         flash_relpos_mhsa_reference,
     )
 
-    cases = [
-        ("B16 T204 E512 H8", 16, 204, FLASH_LENS, (-1, -1)),
-        ("T1", 2, 1, [1, 0], (-1, -1)),
-        ("T37", 3, 37, [37, 20, 0], (-1, -1)),
-        ("T512", 2, 512, [512, 300], (-1, -1)),
-        ("band(16,0)", 4, 204, [204, 150, 17, 0], (16, 0)),
-    ]
     errs = {}
-    for name, B, T, lens, (left, right) in cases:
+    for name, B, T, lens, (left, right), H, D in FLASH_CASES:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-            args = flash_inputs(B, T, 8, 64, lens, dtype, dev, seed=T + B)
-            out = flash_relpos_mhsa(*args, n_heads=8, left=left, right=right)
-            ref = flash_relpos_mhsa_reference(*args, n_heads=8, left=left, right=right)
+            args = flash_inputs(B, T, H, D, lens, dtype, dev, seed=T + B)
+            out = flash_relpos_mhsa(*args, n_heads=H, left=left, right=right)
+            ref = flash_relpos_mhsa_reference(*args, n_heads=H, left=left, right=right)
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs().max().item()
             tag = f"{name} {str(dtype).split('.')[-1]}"
@@ -1199,19 +1208,12 @@ def check_flash_backward(dev, rec):
         keep_threshold,
     )
 
-    cases = [
-        ("B16 T204 E512 H8", 16, 204, FLASH_LENS, (-1, -1)),
-        ("T1", 2, 1, [1, 0], (-1, -1)),
-        ("T37", 3, 37, [37, 20, 0], (-1, -1)),
-        ("T512", 2, 512, [512, 300], (-1, -1)),
-        ("band(16,0)", 4, 204, [204, 150, 17, 0], (16, 0)),
-    ]
     errs = {}
-    for name, B, T, lens, (left, right) in cases:
+    for name, B, T, lens, (left, right), H, D in FLASH_CASES:
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
             for rate in (0.0, 0.1):
-                args = flash_inputs(B, T, 8, 64, lens, dtype, dev, seed=T + B)
-                kw = dict(n_heads=8, left=left, right=right, dropout_rate=rate, seed=T + 7)
+                args = flash_inputs(B, T, H, D, lens, dtype, dev, seed=T + B)
+                kw = dict(n_heads=H, left=left, right=right, dropout_rate=rate, seed=T + 7)
                 leaves = [a.detach().requires_grad_(True) for a in args[:6]]
                 out = flash_relpos_mhsa(*leaves, args[6], **kw)
                 g = torch.Generator().manual_seed(T)
@@ -2257,10 +2259,12 @@ def main() -> int:
         f"{rec['flash_forward_build']['dynamic_shared_bytes']}")
     rec["flash_backward_build"] = {
         "ptxas": ptxas_lines("flash_mhsa", "flash_relpos_bwd_mma_kernel", by_dim=True),
-        "dynamic_shared_bytes": {f"D{d}": flash_bwd_mma_shared_bytes(d) for d in (16, 32, 64)}}
+        "dynamic_shared_bytes": {f"D{d}": flash_bwd_mma_shared_bytes(d) for d in (16, 32, 64)},
+        "scalar_ptxas": ptxas_lines("flash_mhsa", "flash_relpos_bwd_kernel", by_dim=True)}
     log(f"  flash backward (bf16 on mma.sync, 128 threads a block): ptxas "
         f"{rec['flash_backward_build']['ptxas']}; dynamic shared memory a block "
-        f"{rec['flash_backward_build']['dynamic_shared_bytes']}")
+        f"{rec['flash_backward_build']['dynamic_shared_bytes']}; the scalar kernel (f32, "
+        f"and bf16 at D128): ptxas {rec['flash_backward_build']['scalar_ptxas']}")
 
     log("[3/8] kernels vs plain versions on the card")
     check_flash(dev, rec)

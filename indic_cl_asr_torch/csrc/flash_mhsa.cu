@@ -112,7 +112,18 @@
 // Backward in f32 (flash_relpos_bwd_kernel, the CPU-parity dtype): the
 // f32 forward's tiling and scalar FMAs, P rebuilt as the f32 forward
 // computes it, dk and dv by one f32 atomicAdd an element per tile pair,
-// dp per element of each tile pair's window.
+// dp per element of each tile pair's window. At D 128 its tiles of 64
+// query rows would need 264 KB of shared memory, so it takes 32 rows a
+// block there (181,244 B); the bf16 backward at D 128 is this scalar
+// kernel too (in bf16 storage, f32 arithmetic), because the tensor-core
+// kernel's register accumulators fit only up to D 64.
+//
+// Head dims: the kernels are built for D in {16, 32, 64, 128}; the
+// wrapper (ops/flash_mhsa.py) zero-pads any other D <= 128 to the next of
+// them and passes the scale 1/sqrt(D) of the unpadded head, so the zero
+// columns change no score. Above D 128 the f32 forward's tiles (and the
+// backward's at any row count that keeps 64-wide key tiles) exceed a
+// block's 227 KB, and the wrapper raises.
 //
 // Bound at flagship shapes (B16 T204 E512 H8, bf16): the forward ~1.2
 // GFLOP on the rows' lengths and ~11 MB per call, the backward ~2.7x
@@ -185,19 +196,20 @@ template <int D> constexpr int fwd_smem_floats() {
   return (2 * TQ + 2 * TK + PW) * (D + 1) + TQ * (TK + 1);
 }
 
-template <int D> constexpr int bwd_smem_floats() {
-  // Qu, Qv, dO [TQ][D+1]; K, V [TK][D+1]; p window [PW][D+1];
-  // dS, Pd [TQ][TK+1]
-  return (3 * TQ + 2 * TK + PW) * (D + 1) + 2 * TQ * (TK + 1);
+// QR query rows a block (64, or 32 at D 128, where 64 rows' tiles would
+// not fit): Qu, Qv, dO [QR][D+1]; K, V [TK][D+1]; p window
+// [QR+TK-1][D+1]; dS, Pd [QR][TK+1]
+template <int D, int QR> constexpr int bwd_smem_floats() {
+  return (3 * QR + 2 * TK + QR + TK - 1) * (D + 1) + 2 * QR * (TK + 1);
 }
 
-// (q + bias) rounded to the compute dtype, for rows t0 .. t0+TQ-1 of head h
-template <typename T, int D>
+// (q + bias) rounded to the compute dtype, for rows t0 .. t0+QR-1 of head h
+template <typename T, int D, int QR = TQ>
 __device__ __forceinline__ void load_q(const T* q, const T* bu, const T* bv,
                                        float* sQu, float* sQv, int b, int h,
                                        int t0, int T_, int E) {
   constexpr int DP = D + 1;
-  for (int idx = threadIdx.x; idx < TQ * D; idx += NT) {
+  for (int idx = threadIdx.x; idx < QR * D; idx += NT) {
     const int r = idx / D, d = idx % D, t = t0 + r;
     float qu = 0.f, qv = 0.f;
     if (t < T_) {
@@ -211,7 +223,8 @@ __device__ __forceinline__ void load_q(const T* q, const T* bu, const T* bv,
 }
 
 // keys/values j0 .. j0+TK-1 and the p window of the (t0, j0) tile pair
-template <typename T, int D>
+// (QR + TK - 1 rows for a tile of QR query rows)
+template <typename T, int D, int QR = TQ>
 __device__ __forceinline__ void load_kv_window(const T* k, const T* v,
                                                const T* p, float* sK,
                                                float* sV, float* sP, int b,
@@ -229,40 +242,42 @@ __device__ __forceinline__ void load_kv_window(const T* k, const T* v,
     sK[r * DP + d] = kk;
     sV[r * DP + d] = vv;
   }
-  const int g0 = (T_ - 1) + j0 - t0 - (TQ - 1);
-  for (int idx = threadIdx.x; idx < PW * D; idx += NT) {
+  const int g0 = (T_ - 1) + j0 - t0 - (QR - 1);
+  for (int idx = threadIdx.x; idx < (QR + TK - 1) * D; idx += NT) {
     const int w = idx / D, d = idx % D, g = g0 + w;
     sP[w * DP + d] =
         (g >= 0 && g < 2 * T_ - 1) ? to_f<T>(p[(size_t)g * E + h * D + d]) : 0.f;
   }
 }
 
-// raw scores of the thread's 4x4 block: ac = qu·k, bd = qv·p_window
-template <int D>
+// raw scores of the thread's RxR4 block (R = QR/16 query rows ty*R + i,
+// 4 keys tx + 16c): ac = qu·k, bd = qv·p_window
+template <int D, int QR = TQ>
 __device__ __forceinline__ void tile_scores(const float* sQu, const float* sQv,
                                             const float* sK, const float* sP,
-                                            int ty, int tx, float ac[4][4],
-                                            float bd[4][4]) {
+                                            int ty, int tx, float ac[QR / 16][4],
+                                            float bd[QR / 16][4]) {
   constexpr int DP = D + 1;
+  constexpr int R = QR / 16;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) ac[i][c] = bd[i][c] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float qu[4], qv[4], kc[4];
+    float qu[R], qv[R], kc[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qu[i] = sQu[(ty * 4 + i) * DP + d];
-      qv[i] = sQv[(ty * 4 + i) * DP + d];
+    for (int i = 0; i < R; ++i) {
+      qu[i] = sQu[(ty * R + i) * DP + d];
+      qv[i] = sQv[(ty * R + i) * DP + d];
     }
 #pragma unroll
     for (int c = 0; c < 4; ++c) kc[c] = sK[(tx + 16 * c) * DP + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int w = (tx + 16 * c) - (ty * 4 + i) + (TQ - 1);
+        const int w = (tx + 16 * c) - (ty * R + i) + (QR - 1);
         ac[i][c] = fmaf(qu[i], kc[c], ac[i][c]);
         bd[i][c] = fmaf(qv[i], sP[w * DP + d], bd[i][c]);
       }
@@ -274,11 +289,11 @@ __device__ __forceinline__ bool visible(int t, int j, int n, int left, int right
   return t < n && j < n && (left < 0 || rel >= -left) && (right < 0 || rel <= right);
 }
 
-// keys any row of the query tile at t0 may see: [j_lo, j_hi)
+// keys any row of the query tile of QR rows at t0 may see: [j_lo, j_hi)
 __device__ __forceinline__ void key_range(int t0, int n, int left, int right,
-                                          int* j_lo, int* j_hi) {
+                                          int* j_lo, int* j_hi, int QR = TQ) {
   *j_lo = left >= 0 ? max(0, t0 - left) : 0;
-  *j_hi = right >= 0 ? min(n, t0 + TQ + right) : n;
+  *j_hi = right >= 0 ? min(n, t0 + QR + right) : n;
 }
 
 template <typename T, int D>
@@ -709,36 +724,37 @@ __global__ void __launch_bounds__(MNT, D <= 64 ? 3 : 1) flash_relpos_fwd_mma_ker
   }
 }
 
-// P, Pd and dP of the thread's 4x4 block of a (t0, j0) tile pair
-template <typename T, int D>
+// P, Pd and dP of the thread's Rx4 block of a (t0, j0) tile pair
+template <typename T, int D, int QR>
 __device__ __forceinline__ void tile_probs(
     const float* sQu, const float* sQv, const float* sK, const float* sV,
-    const float* sP, const float* sdO, const float lse[4], int ty, int tx,
+    const float* sP, const float* sdO, const float lse[QR / 16], int ty, int tx,
     int t0, int j0, int n, int left, int right, int T_, float scale,
-    uint32_t key, const Drop& drop, float P[4][4], float Pd[4][4],
-    float dP[4][4]) {
+    uint32_t key, const Drop& drop, float P[QR / 16][4], float Pd[QR / 16][4],
+    float dP[QR / 16][4]) {
   constexpr int DP = D + 1;
-  float ac[4][4], bd[4][4], dpd[4][4];
-  tile_scores<D>(sQu, sQv, sK, sP, ty, tx, ac, bd);
+  constexpr int R = QR / 16;
+  float ac[R][4], bd[R][4], dpd[R][4];
+  tile_scores<D, QR>(sQu, sQv, sK, sP, ty, tx, ac, bd);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dpd[i][c] = 0.f;
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float g[4], vc[4];
+    float g[R], vc[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) g[i] = sdO[(ty * 4 + i) * DP + d];
+    for (int i = 0; i < R; ++i) g[i] = sdO[(ty * R + i) * DP + d];
 #pragma unroll
     for (int c = 0; c < 4; ++c) vc[c] = sV[(tx + 16 * c) * DP + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
       for (int c = 0; c < 4; ++c) dpd[i][c] = fmaf(g[i], vc[c], dpd[i][c]);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int t = t0 + ty * R + i;
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       const int j = j0 + tx + 16 * c;
@@ -753,7 +769,12 @@ __device__ __forceinline__ void tile_probs(
   }
 }
 
-template <typename T, int D>
+// The scalar backward: QR query rows a block (R = QR/16 a thread), 256
+// threads. The f32 backward at every head dim (QR 64, and 32 at D 128,
+// whose 64-row tiles would need 264 KB of shared memory), and the bf16
+// backward at D 128, where the tensor-core kernel's register accumulators
+// (dqu, dqv and the held dp window) do not fit.
+template <typename T, int D, int QR>
 __global__ void __launch_bounds__(NT) flash_relpos_bwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ p, const T* __restrict__ bu,
@@ -765,17 +786,19 @@ __global__ void __launch_bounds__(NT) flash_relpos_bwd_kernel(
   constexpr int DP = D + 1;
   constexpr int SP = TK + 1;
   constexpr int DC = D / 16;
+  constexpr int R = QR / 16;         // query rows a thread
+  constexpr int PWQ = QR + TK - 1;   // rows of the p window
   extern __shared__ float smem[];
   float* sQu = smem;
-  float* sQv = sQu + TQ * DP;
-  float* sdO = sQv + TQ * DP;
-  float* sK = sdO + TQ * DP;
+  float* sQv = sQu + QR * DP;
+  float* sdO = sQv + QR * DP;
+  float* sK = sdO + QR * DP;
   float* sV = sK + TK * DP;
   float* sP = sV + TK * DP;
-  float* sDS = sP + PW * DP;
-  float* sPd = sDS + TQ * SP;
+  float* sDS = sP + PWQ * DP;
+  float* sPd = sDS + QR * SP;
 
-  const int t0 = blockIdx.x * TQ;
+  const int t0 = blockIdx.x * QR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int E = H * D;
@@ -786,41 +809,41 @@ __global__ void __launch_bounds__(NT) flash_relpos_bwd_kernel(
   n = n < 0 ? 0 : (n > T_ ? T_ : n);
   const uint32_t key = drop_key(drop.seed, b, h, H);
 
-  float gqu[4][DC], gqv[4][DC];
+  float gqu[R][DC], gqv[R][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) gqu[i][c] = gqv[i][c] = 0.f;
 
   if (t0 < n) {
-    load_q<T, D>(q, bu, bv, sQu, sQv, b, h, t0, T_, E);
-    for (int idx = tid; idx < TQ * D; idx += NT) {
+    load_q<T, D, QR>(q, bu, bv, sQu, sQv, b, h, t0, T_, E);
+    for (int idx = tid; idx < QR * D; idx += NT) {
       const int r = idx / D, d = idx % D, t = t0 + r;
       sdO[r * DP + d] =
           t < T_ ? to_f<T>(dout[((size_t)b * T_ + t) * E + h * D + d]) : 0.f;
     }
-    float lse[4], delta[4];
+    float lse[R], delta[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int t = t0 + ty * 4 + i;
+    for (int i = 0; i < R; ++i) {
+      const int t = t0 + ty * R + i;
       lse[i] = t < T_ ? lse_g[((size_t)b * H + h) * T_ + t] : 0.f;
       delta[i] = 0.f;
     }
     int j_lo, j_hi;
-    key_range(t0, n, left, right, &j_lo, &j_hi);
+    key_range(t0, n, left, right, &j_lo, &j_hi, QR);
     const int j_first = (j_lo / TK) * TK;
-    float P[4][4], Pd[4][4], dP[4][4];
+    float P[R][4], Pd[R][4], dP[R][4];
 
     // pass 1: delta[t] = sum_j dP[t,j] P[t,j], from the same P and dP the
     // gradients use (the TPU kernel's delta; no rounded O enters it)
     for (int j0 = j_first; j0 < j_hi; j0 += TK) {
       __syncthreads();
-      load_kv_window<T, D>(k, v, p, sK, sV, sP, b, h, t0, j0, T_, E);
+      load_kv_window<T, D, QR>(k, v, p, sK, sV, sP, b, h, t0, j0, T_, E);
       __syncthreads();
-      tile_probs<T, D>(sQu, sQv, sK, sV, sP, sdO, lse, ty, tx, t0, j0, n, left,
-                       right, T_, scale, key, drop, P, Pd, dP);
+      tile_probs<T, D, QR>(sQu, sQv, sK, sV, sP, sdO, lse, ty, tx, t0, j0, n, left,
+                           right, T_, scale, key, drop, P, Pd, dP);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         float part = 0.f;
 #pragma unroll
         for (int c = 0; c < 4; ++c) part = fmaf(dP[i][c], P[i][c], part);
@@ -834,13 +857,13 @@ __global__ void __launch_bounds__(NT) flash_relpos_bwd_kernel(
     // pass 2: the gradients
     for (int j0 = j_first; j0 < j_hi; j0 += TK) {
       __syncthreads();
-      load_kv_window<T, D>(k, v, p, sK, sV, sP, b, h, t0, j0, T_, E);
+      load_kv_window<T, D, QR>(k, v, p, sK, sV, sP, b, h, t0, j0, T_, E);
       __syncthreads();
-      tile_probs<T, D>(sQu, sQv, sK, sV, sP, sdO, lse, ty, tx, t0, j0, n, left,
-                       right, T_, scale, key, drop, P, Pd, dP);
+      tile_probs<T, D, QR>(sQu, sQv, sK, sV, sP, sdO, lse, ty, tx, t0, j0, n, left,
+                           right, T_, scale, key, drop, P, Pd, dP);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
+      for (int i = 0; i < R; ++i) {
+        const int r = ty * R + i;
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int cc = tx + 16 * c;
@@ -850,17 +873,17 @@ __global__ void __launch_bounds__(NT) flash_relpos_bwd_kernel(
       }
       __syncthreads();
 
-      // dqu, dqv: the thread's 4 query rows x D/16 columns
+      // dqu, dqv: the thread's R query rows x D/16 columns
 #pragma unroll 4
       for (int jj = 0; jj < TK; ++jj) {
         float kv[DC];
 #pragma unroll
         for (int c = 0; c < DC; ++c) kv[c] = sK[jj * DP + tx + 16 * c];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = ty * 4 + i;
+        for (int i = 0; i < R; ++i) {
+          const int r = ty * R + i;
           const float ds = sDS[r * SP + jj];
-          const float* pw = sP + (jj - r + (TQ - 1)) * DP;
+          const float* pw = sP + (jj - r + (QR - 1)) * DP;
 #pragma unroll
           for (int c = 0; c < DC; ++c) {
             gqu[i][c] = fmaf(ds, kv[c], gqu[i][c]);
@@ -876,7 +899,7 @@ __global__ void __launch_bounds__(NT) flash_relpos_bwd_kernel(
 #pragma unroll
           for (int c = 0; c < DC; ++c) ak[i][c] = av[i][c] = 0.f;
 #pragma unroll 4
-        for (int r = 0; r < TQ; ++r) {
+        for (int r = 0; r < QR; ++r) {
           float qc[DC], gc[DC];
 #pragma unroll
           for (int c = 0; c < DC; ++c) {
@@ -906,17 +929,17 @@ __global__ void __launch_bounds__(NT) flash_relpos_bwd_kernel(
           }
         }
       }
-      // dp over the window: dp[g0+w] += sum_r dS[r, r+w-63] qv[r]
+      // dp over the window: dp[g0+w] += sum_r dS[r, r+w-(QR-1)] qv[r]
       {
-        const int g0 = (T_ - 1) + j0 - t0 - (TQ - 1);
-        for (int idx = tid; idx < PW * D; idx += NT) {
+        const int g0 = (T_ - 1) + j0 - t0 - (QR - 1);
+        for (int idx = tid; idx < PWQ * D; idx += NT) {
           const int w = idx / D, d = idx % D, g = g0 + w;
           if (g < 0 || g >= 2 * T_ - 1) continue;
-          const int r_lo = max(0, (TQ - 1) - w);
-          const int r_hi = min(TQ, (TQ - 1) - w + TK);
+          const int r_lo = max(0, (QR - 1) - w);
+          const int r_hi = min(QR, (QR - 1) - w + TK);
           float acc = 0.f;
           for (int r = r_lo; r < r_hi; ++r)
-            acc = fmaf(sDS[r * SP + r + w - (TQ - 1)], sQv[r * DP + d], acc);
+            acc = fmaf(sDS[r * SP + r + w - (QR - 1)], sQv[r * DP + d], acc);
           if (acc != 0.f) atomicAdd(dp + (size_t)g * E + h * D + d, acc);
         }
       }
@@ -925,8 +948,8 @@ __global__ void __launch_bounds__(NT) flash_relpos_bwd_kernel(
 
   // dq = dqu + dqv; the bias gradients are dqu's and dqv's column sums
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = t0 + ty * 4 + i;
+  for (int i = 0; i < R; ++i) {
+    const int t = t0 + ty * R + i;
     if (t >= T_) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
@@ -936,7 +959,7 @@ __global__ void __launch_bounds__(NT) flash_relpos_bwd_kernel(
   for (int c = 0; c < DC; ++c) {
     float su = 0.f, sv = 0.f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       su += gqu[i][c];
       sv += gqv[i][c];
     }
@@ -1376,24 +1399,37 @@ cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// the scalar backward in T at head dim D, QR query rows a block
+template <typename T, int D, int QR>
+cudaError_t launch_bwd_scalar(const void* q, const void* k, const void* v,
+                              const void* p, const void* bu, const void* bv,
+                              const void* lens, const void* dout, const float* lse,
+                              void* dq, float* dbias, float* dk, float* dv, float* dp,
+                              int B, int T_, int H, int left, int right, float scale,
+                              Drop drop, cudaStream_t stream) {
+  constexpr int smem = bwd_smem_floats<D, QR>() * (int)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(flash_relpos_bwd_kernel<T, D, QR>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((T_ + QR - 1) / QR, H, B);
+  flash_relpos_bwd_kernel<T, D, QR><<<grid, NT, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)p, (const T*)bu, (const T*)bv,
+      (const int*)lens, (const T*)dout, lse, (T*)dq, dbias, dk, dv, dp, T_, H, left, right,
+      scale, drop);
+  return cudaGetLastError();
+}
+
+// the f32 backward: 64 query rows a block, 32 at D 128
 template <int D>
 cudaError_t launch_bwd_f32(const void* q, const void* k, const void* v,
-                       const void* p, const void* bu, const void* bv,
-                       const void* lens, const void* dout,
-                       const float* lse, void* dq, float* dbias, float* dk,
-                       float* dv, float* dp, int B, int T_, int H, int left,
-                       int right, float scale, Drop drop, cudaStream_t stream) {
-  const int smem = bwd_smem_floats<D>() * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_relpos_bwd_kernel<float, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((T_ + TQ - 1) / TQ, H, B);
-  flash_relpos_bwd_kernel<float, D><<<grid, NT, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)p, (const float*)bu,
-      (const float*)bv, (const int*)lens, (const float*)dout, lse, (float*)dq,
-      dbias, dk, dv, dp, T_, H, left, right, scale, drop);
-  return cudaGetLastError();
+                           const void* p, const void* bu, const void* bv,
+                           const void* lens, const void* dout,
+                           const float* lse, void* dq, float* dbias, float* dk,
+                           float* dv, float* dp, int B, int T_, int H, int left,
+                           int right, float scale, Drop drop, cudaStream_t stream) {
+  return launch_bwd_scalar<float, D, D <= 64 ? TQ : TQ / 2>(
+      q, k, v, p, bu, bv, lens, dout, lse, dq, dbias, dk, dv, dp, B, T_, H, left, right,
+      scale, drop, stream);
 }
 
 template <int D>
@@ -1403,17 +1439,25 @@ cudaError_t launch_bwd_mma(const void* q, const void* k, const void* v,
                            const float* lse, void* dq, float* dbias, float* dk,
                            float* dv, float* dp, int B, int T_, int H, int left,
                            int right, float scale, Drop drop, cudaStream_t stream) {
-  constexpr int smem = BwdLayout<D>::BYTES;
-  // every call: the attribute is the current device's
-  cudaError_t e = cudaFuncSetAttribute(flash_relpos_bwd_mma_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((T_ + TQ - 1) / TQ, H, B);
-  flash_relpos_bwd_mma_kernel<D><<<grid, MNT, smem, stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)p, (const bf16*)bu,
-      (const bf16*)bv, (const int*)lens, (const bf16*)dout, lse, (bf16*)dq, dbias, dk, dv,
-      dp, T_, H, left, right, scale, drop);
-  return cudaGetLastError();
+  if constexpr (D > 64) {
+    // the tensor-core kernel's register accumulators (dqu, dqv and the
+    // held dp window) fit up to D 64: the scalar kernel, 32 rows a block
+    return launch_bwd_scalar<bf16, D, TQ / 2>(q, k, v, p, bu, bv, lens, dout, lse, dq,
+                                              dbias, dk, dv, dp, B, T_, H, left, right,
+                                              scale, drop, stream);
+  } else {
+    constexpr int smem = BwdLayout<D>::BYTES;
+    // every call: the attribute is the current device's
+    cudaError_t e = cudaFuncSetAttribute(flash_relpos_bwd_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid((T_ + TQ - 1) / TQ, H, B);
+    flash_relpos_bwd_mma_kernel<D><<<grid, MNT, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)p, (const bf16*)bu,
+        (const bf16*)bv, (const int*)lens, (const bf16*)dout, lse, (bf16*)dq, dbias, dk,
+        dv, dp, T_, H, left, right, scale, drop);
+    return cudaGetLastError();
+  }
 }
 
 template <int D>
@@ -1508,6 +1552,7 @@ extern "C" int flash_relpos_bwd(const void* q, const void* k, const void* v,
     case 16: e = BWD(LAUNCH, 16); break;            \
     case 32: e = BWD(LAUNCH, 32); break;            \
     case 64: e = BWD(LAUNCH, 64); break;            \
+    case 128: e = BWD(LAUNCH, 128); break;          \
     default: return (int)cudaErrorInvalidValue;     \
   }
   if (dtype == 0) {

@@ -7,27 +7,45 @@ top-K selection, parent gathers, LSTM steps, force-finalisation, in-beam
 prefix merge, best of beam) in one launch, with the same contract:
 ``(ids [B, max_out] int32 blank-padded, lens [B] int32, scores [B] f32)``.
 
-The kernel (``csrc/beam_fused.cu``) gives each batch row its own block,
-which holds the row's K hypotheses in shared memory and walks its own
-frames and expansion rounds with the head of its own language, so a batch
-may mix languages (the TPU kernel holds one head for the whole batch).
-A parent gather is an index into shared memory; the TPU kernel's one-hot
-MXU gathers and layout products have no counterpart. Its plain version is
+The kernel (``csrc/beam_fused.cu``) gives each batch row its own
+thread-block cluster of ``CLUSTER`` blocks, as the greedy kernel does
+(``ops/decode_fused.py``): the row walks its own frames and expansion
+rounds with the head of its own language, so a batch may mix languages
+(the TPU kernel holds one head for the whole batch). Each block streams
+only its slice of the weights (``cluster_split``: all four gates of its
+hidden units, its columns of W_p, its columns of the head), for all K
+hypotheses at once: on the FMA units in f32, on the tensor cores in bf16
+(``mma.sync``, every input of those products being a bf16 value, with the
+weights transposed by ``beam_weights``). Every block holds the row's K
+hypotheses (tokens, lengths, scores, h and g; the cell state by units)
+and makes the same decisions: after the joint each block sends every peer
+its partial log-softmax (max and sum of exponentials) and its top-P
+(logit, index) per hypothesis, and every block merges them in rank order;
+after the gates and after the projection each block sends its units' h
+and its columns of g. Three cluster barriers a round that emits, one a
+round that does not. A parent gather is an index into shared memory; the
+TPU kernel's one-hot MXU gathers and layout products have no
+counterpart. Its plain version is
 ``ops/beam_search.py:rnnt_beam_search_batched`` over the model's own
 ``pred_step`` / ``joint_step``, which equals the kernel row by row (the
-kernel's source argues why a row may stop its rounds before the batch).
+kernel's source argues why a row may stop its rounds before the batch);
+the log-softmax summed by blocks may move the last bits of a score, so in
+f32 a row may differ only where the plain version's trace shows a tie.
 
-What bounds it on the card: each round's LSTM step streams W_ih, W_hh and
-W_p (about 7.3 MB in bf16 at flagship widths) through one SM once for all
-K hypotheses, and the rounds of a row run one after another, so the time
-is the per-row chain of rounds at one SM's L2 rate, far above the bytes
-bound of the launch.
+What bounds it on the card: the rounds of a row run one after another,
+so the time is the per-row chain of rounds: a round without an LSTM step
+is a chain of short phases (the joint on the block's head slice, the
+exchange and its barrier, the merge, the top-K, the gather), one with a
+step adds the L2 draw of the block's 1/CLUSTER of W_ih, W_hh and W_p
+(about 7.3 MB in bf16 at flagship widths over the cluster) and two more
+barriers; both far above the bytes bound of the launch.
 
 As for the greedy kernel: the joint activation is relu and the
 prediction net has one LSTM layer. The TPU kernel's VMEM model
 (``fits_fused_beam``) has no counterpart; the card's limit is the shared
-memory of one block, which the launch asks for with
-``cudaFuncSetAttribute``, and the wrapper raises on its error.
+memory of one block (the replicated hypotheses, the exchange slots, the
+partial sums), which the launch asks for with ``cudaFuncSetAttribute``,
+and the wrapper raises on its error.
 """
 
 from __future__ import annotations
@@ -38,11 +56,13 @@ import torch
 
 from . import _build, decode_fused
 from .beam_search import rnnt_beam_search_batched
-from .decode_fused import _DTYPES, extract_decode_weights
+from .decode_fused import _DTYPES, cluster_split, extract_decode_weights
 
-# one 8-bf16 column group of the flagship gates each, and a warp for
-# each of up to 8 hypotheses (csrc/beam_fused.cu)
-THREADS = 320
+# 8 warps: one for each of up to 8 hypotheses; at 255 registers a thread
+# the mat-vecs keep their sums of four hypotheses and eight rows of loads
+# in flight without spilling (csrc/beam_fused.cu)
+THREADS = 256
+CLUSTER = 8  # blocks per row: the portable maximum of a thread-block cluster
 
 
 def rnnt_beam_search_fused_reference(
@@ -57,6 +77,25 @@ def rnnt_beam_search_fused_reference(
         blank=model.cfg.blank_local, beam_size=beam_size,
         max_expansions=max_expansions, max_out=max_out, topk=topk, trace=trace,
     )
+
+
+def beam_weights(model) -> dict:
+    """The kernel's operands: ``extract_decode_weights``' in f32; in bf16
+    the mat-vec weights transposed for the tensor cores (a row per output
+    column, its depth contiguous): w_ih and w_hh [4Hp, Hp], wp [Hj, Hp],
+    head [L, V1p, Hj]. Cached on the model beside the decode weights and
+    made again with them."""
+    w = extract_decode_weights(model)
+    if w["table"].dtype != torch.bfloat16:
+        return w
+    cached = getattr(model, "_beam_weights", None)
+    if cached is not None and cached[0] is w:
+        return cached[1]
+    with torch.no_grad():
+        t = dict(w, w_ih=w["w_ih"].t().contiguous(), w_hh=w["w_hh"].t().contiguous(),
+                 wp=w["wp"].t().contiguous(), head=w["head"].transpose(1, 2).contiguous())
+    model._beam_weights = (w, t)
+    return t
 
 
 # device-side counters of the work the kernel ran: [joint evaluations of
@@ -104,7 +143,7 @@ def rnnt_beam_search_fused(
         )
     if f_proj.device.type != "cuda":
         raise ValueError(f"unsupported device {f_proj.device}")
-    w = extract_decode_weights(model)
+    w = beam_weights(model)
     dt = w["table"].dtype
     if dt not in _DTYPES:
         raise TypeError(f"fused beam takes float32 or bfloat16, got {dt}")
@@ -123,6 +162,8 @@ def rnnt_beam_search_fused(
     if w["table"].device != dev:
         raise ValueError(f"the model is on {w['table'].device}, f_proj on {dev}")
     f = f_proj.to(dt).contiguous()
+    if f.data_ptr() % 16:  # the kernel reads each frame in 16-byte vectors
+        f = f.clone()
     lens_i = frame_lens.to(device=dev, dtype=torch.int32).contiguous()
     lang_i = lang_ids.to(device=dev, dtype=torch.int32).contiguous()
     ids = torch.empty((B, max_out), dtype=torch.int32, device=dev)
@@ -134,6 +175,7 @@ def rnnt_beam_search_fused(
         # zero it anywhere
         with torch.inference_mode(False):
             work = _work[dev] = torch.zeros(3, dtype=torch.int64, device=dev)
+    V1p = decode_fused._pad8(V1)
     lib = _build.load("beam_fused")
     stream = torch.cuda.current_stream(dev).cuda_stream
     p = _build.ptr
@@ -141,8 +183,9 @@ def rnnt_beam_search_fused(
         p(f), p(lens_i), p(lang_i), p(w["table"]), p(w["w_ih"]), p(w["w_hh"]),
         p(w["bias"]), p(w["wp"]), p(w["bp"]), p(w["head"]), p(w["head_b"]),
         p(ids), p(olen), p(oscore), p(work),
-        B, T, Hj, Hp, V1, w["head"].shape[-1], L, V1 - 1, beam_size, P,
-        max_expansions, max_out, _DTYPES[dt], THREADS, ctypes.c_void_p(stream),
+        B, T, Hj, Hp, V1, V1p, L, V1 - 1, beam_size, P,
+        max_expansions, max_out, _DTYPES[dt], THREADS, CLUSTER, _bounds(Hp, Hj, V1p, vec),
+        ctypes.c_void_p(stream),
     )
     _build.check(lib, err, "rnnt_beam_search_fused")
     rnnt_beam_search_fused.launches += 1
@@ -152,9 +195,15 @@ def rnnt_beam_search_fused(
 rnnt_beam_search_fused.launches = 0
 
 
+def _bounds(Hp: int, Hj: int, V1p: int, vec: int):
+    """cluster_split as the C array [3][CLUSTER + 1] the launch takes."""
+    split = cluster_split(Hp, Hj, V1p, vec, CLUSTER)
+    return (ctypes.c_int * (3 * (CLUSTER + 1)))(*split["unit"], *split["proj"], *split["head"])
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.rnnt_beam_search_fused.argtypes = [vp] * 15 + [i] * 14 + [vp]
+    lib.rnnt_beam_search_fused.argtypes = [vp] * 15 + [i] * 15 + [ctypes.POINTER(i), vp]
     lib.rnnt_beam_search_fused.restype = i
 
 

@@ -53,15 +53,15 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' head dims, forward and backward; any other D up to 128 runs
+# zero-padded to the next of them (pad_heads), above 128 the wrappers raise
 _HEAD_DIMS = (16, 32, 64, 128)
-# the backward at D=128: the bf16 kernel's register accumulators (dq and
-# the held dp window) and the f32 kernel's shared tiles would overflow
-_BWD_HEAD_DIMS = (16, 32, 64)
 _M32 = 0xFFFFFFFF
 
 
@@ -111,11 +111,13 @@ def keep_threshold(rate: float) -> int:
 def flash_relpos_mhsa_reference(
     q, k, v, p, bias_u, bias_v, lens, *, n_heads: int, left: int = -1,
     right: int = -1, dropout_rate: float = 0.0, seed: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of the kernels (the TPU kernel's _head_probs,
     _apply_drop and relpos_attention_reference semantics); differentiable,
-    so its autograd is the backward kernel's plain version. Returns
-    [B, T, E] in q's dtype."""
+    so its autograd is the backward kernel's plain version. ``scale``
+    defaults to 1/sqrt(D); a head zero-padded from D columns keeps its
+    unpadded scale. Returns [B, T, E] in q's dtype."""
     B, T, E = q.shape
     H = n_heads
     D = E // H
@@ -130,7 +132,7 @@ def flash_relpos_mhsa_reference(
     shift = (T - 1) + t_idx[None, :] - t_idx[:, None]  # [T(t), T(j)]
     bd = torch.gather(raw, 3, shift.expand(B, H, T, T))
     bd = bd.to(dt).float()  # position scores rounded once to the compute dtype
-    s = (ac + bd) * (1.0 / math.sqrt(D))
+    s = (ac + bd) * (1.0 / math.sqrt(D) if scale is None else scale)
     mask = _mask(T, lens.to(torch.int64), left, right)
     s = torch.where(mask, s, _NEG)
     m = s.amax(dim=-1, keepdim=True)
@@ -159,16 +161,57 @@ def _check(q, k, v, p, n_heads):
         raise ValueError(f"unsupported device {q.device}")
 
 
-def _check_cuda(q, k, v, p, n_heads, dims):
+def _check_cuda(q, k, v, p, n_heads):
     dt = q.dtype
     if dt not in _DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got {dt}")
     D = q.shape[-1] // n_heads
-    if D not in dims:
-        raise ValueError(f"flash kernel head dim must be one of {dims}, got {D}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"flash kernel head dim must be one of {_HEAD_DIMS}, got {D}")
     for name, t in (("k", k), ("v", v), ("p", p)):
         if t.dtype != dt or t.device != q.device:
             raise TypeError(f"{name} must be {dt} on {q.device}")
+
+
+def kernel_head_dim(D: int) -> int:
+    """The head dim the kernels run a head of D columns at: D where they
+    are built for it, else the next larger one (the head zero-padded)."""
+    for dk in _HEAD_DIMS:
+        if D <= dk:
+            return dk
+    raise ValueError(f"flash kernels take head dims up to {_HEAD_DIMS[-1]}, got {D}: "
+                     "a block's shared memory holds no larger tiles")
+
+
+def pad_heads(t: torch.Tensor, n_heads: int, dk: int) -> torch.Tensor:
+    """[..., H*D] -> [..., H*dk]: each head's D columns followed by dk - D
+    zeros (t itself where D == dk). A zero column adds nothing to a dot
+    product, so scores, probabilities and the first D output columns are
+    those of the unpadded heads, given the unpadded scale."""
+    D = t.shape[-1] // n_heads
+    if D == dk:
+        return t
+    lead = t.shape[:-1]
+    return F.pad(t.reshape(*lead, n_heads, D), (0, dk - D)).reshape(*lead, n_heads * dk)
+
+
+def unpad_heads(t: torch.Tensor, n_heads: int, D: int) -> torch.Tensor:
+    """[..., H*dk] -> [..., H*D]: the first D columns of each head."""
+    dk = t.shape[-1] // n_heads
+    if D == dk:
+        return t
+    lead = t.shape[:-1]
+    return t.reshape(*lead, n_heads, dk)[..., :D].reshape(*lead, n_heads * D)
+
+
+def _padded(q, k, v, p, bias_u, bias_v, n_heads):
+    """The operands zero-padded to the kernels' head dim, the biases as
+    [H, dk]."""
+    dk = kernel_head_dim(q.shape[-1] // n_heads)
+    q, k, v, p = (pad_heads(t, n_heads, dk) for t in (q, k, v, p))
+    bias_u, bias_v = (pad_heads(b.reshape(-1), n_heads, dk).reshape(n_heads, dk)
+                      for b in (bias_u, bias_v))
+    return q, k, v, p, bias_u, bias_v
 
 
 def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -195,9 +238,10 @@ def _drop_args(dropout_rate: float, seed: int):
 
 
 def _launch_fwd(q, k, v, p, bias_u, bias_v, lens, n_heads, left, right,
-                dropout_rate, seed, need_lse):
-    """The forward kernel -> (out, lse [B, H, T] f32 or None)."""
-    _check_cuda(q, k, v, p, n_heads, _HEAD_DIMS)
+                dropout_rate, seed, need_lse, scale=None):
+    """The forward kernel at q's head dim (one the kernels are built for)
+    -> (out, lse [B, H, T] f32 or None); ``scale`` defaults to 1/sqrt(D)."""
+    _check_cuda(q, k, v, p, n_heads)
     B, T, E = q.shape
     dt = q.dtype
     D = E // n_heads
@@ -216,7 +260,8 @@ def _launch_fwd(q, k, v, p, bias_u, bias_v, lens, n_heads, left, right,
         ptr(q), ptr(k), ptr(v), ptr(p), ptr(bu), ptr(bv), ptr(lens_i),
         ptr(out), ptr(lse) if lse is not None else None,
         B, T, n_heads, D, int(left), int(right),
-        ctypes.c_float(1.0 / math.sqrt(D)), *_drop_args(dropout_rate, seed),
+        ctypes.c_float(1.0 / math.sqrt(D) if scale is None else scale),
+        *_drop_args(dropout_rate, seed),
         _DTYPES[dt], ctypes.c_void_p(stream),
     )
     _build.check(lib, err, "flash_relpos_fwd")
@@ -231,13 +276,32 @@ def flash_relpos_mhsa_backward(
     """The backward kernel: gradients (dq, dk, dv, dp, d_bias_u, d_bias_v)
     of the forward that gave the row statistics ``lse``, for the cotangent
     ``dout``. dq = dqu + dqv (qu = q+u and qv = q+v); d_bias_u and d_bias_v
-    are dqu and dqv summed over B and T, per head. CUDA tensors only: on
-    the CPU the plain version's autograd is the backward."""
+    are dqu and dqv summed over B and T, per head. A head dim the kernels
+    are not built for runs zero-padded (``pad_heads``) at the unpadded
+    scale, and the gradients are sliced back. CUDA tensors only: on the
+    CPU the plain version's autograd is the backward."""
     _check(q, k, v, p, n_heads)
     if q.device.type != "cuda":
         raise ValueError("flash_relpos_mhsa_backward launches the CUDA kernel; "
                          "on the CPU use autograd through the plain version")
-    _check_cuda(q, k, v, p, n_heads, _BWD_HEAD_DIMS)
+    D = q.shape[-1] // n_heads
+    if kernel_head_dim(D) == D:
+        return _launch_bwd(q, k, v, p, bias_u, bias_v, lens, lse, dout, n_heads, left,
+                           right, dropout_rate, seed)
+    grads = _launch_bwd(*_padded(q, k, v, p, bias_u, bias_v, n_heads), lens, lse,
+                        pad_heads(dout, n_heads, kernel_head_dim(D)), n_heads, left, right,
+                        dropout_rate, seed, scale=1.0 / math.sqrt(D))
+    dq, dkey, dv, dp = (unpad_heads(g, n_heads, D) for g in grads[:4])
+    d_bu, d_bv = (unpad_heads(g.reshape(-1), n_heads, D).reshape(n_heads, D)
+                  for g in grads[4:])
+    return dq, dkey, dv, dp, d_bu, d_bv
+
+
+def _launch_bwd(q, k, v, p, bias_u, bias_v, lens, lse, dout, n_heads, left, right,
+                dropout_rate, seed, scale=None):
+    """The backward kernel at q's head dim (one the kernels are built for);
+    ``scale`` defaults to 1/sqrt(D)."""
+    _check_cuda(q, k, v, p, n_heads)
     B, T, E = q.shape
     dt = q.dtype
     D = E // n_heads
@@ -266,7 +330,8 @@ def flash_relpos_mhsa_backward(
         bv.data_ptr(), lens_i.data_ptr(), dout.data_ptr(), lse.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dp.data_ptr(), d_bu.data_ptr(),
         d_bv.data_ptr(), acc.data_ptr(), B, T, n_heads, D,
-        int(left), int(right), 1.0 / math.sqrt(D), *_drop_args(dropout_rate, seed),
+        int(left), int(right), 1.0 / math.sqrt(D) if scale is None else scale,
+        *_drop_args(dropout_rate, seed),
         _DTYPES[dt], stream,
     )
     _build.check(lib, err, "flash_relpos_bwd")
@@ -293,14 +358,29 @@ def flash_relpos_mhsa_backward_reference(
 flash_relpos_mhsa_backward.launches = 0
 
 
+def _forward(q, k, v, p, bias_u, bias_v, lens, n_heads, left, right, dropout_rate, seed,
+             need_lse):
+    """The forward kernel at any head dim up to 128: heads the kernels are
+    not built for run zero-padded at the unpadded scale and the output is
+    sliced back (the row statistics ``lse`` are the unpadded heads')."""
+    D = q.shape[-1] // n_heads
+    if kernel_head_dim(D) == D:
+        return _launch_fwd(q, k, v, p, bias_u, bias_v, lens, n_heads, left, right,
+                           dropout_rate, seed, need_lse)
+    out, lse = _launch_fwd(*_padded(q, k, v, p, bias_u, bias_v, n_heads), lens, n_heads,
+                           left, right, dropout_rate, seed, need_lse,
+                           scale=1.0 / math.sqrt(D))
+    return unpad_heads(out, n_heads, D), lse
+
+
 class _Flash(torch.autograd.Function):
     """Forward kernel; backward kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, p, bias_u, bias_v, lens, n_heads, left, right,
                 dropout_rate, seed):
-        out, lse = _launch_fwd(q, k, v, p, bias_u, bias_v, lens, n_heads,
-                               left, right, dropout_rate, seed, need_lse=True)
+        out, lse = _forward(q, k, v, p, bias_u, bias_v, lens, n_heads, left, right,
+                            dropout_rate, seed, need_lse=True)
         ctx.save_for_backward(q, k, v, p, bias_u, bias_v, lens, lse)
         ctx.args = (n_heads, left, right, dropout_rate, seed)
         return out
@@ -332,7 +412,9 @@ def flash_relpos_mhsa(
     seed: int = 0,
 ) -> torch.Tensor:
     """Fused rel-pos attention; [B, T, E] in q's dtype. Differentiable:
-    the backward kernel computes the gradients.
+    the backward kernel computes the gradients. Any head dim up to 128:
+    one the kernels are not built for runs zero-padded (``pad_heads``) at
+    the unpadded scale, and the output is sliced back.
 
     CPU tensors take the plain version (autograd is its backward); CUDA
     tensors launch the kernels or raise."""
@@ -349,7 +431,7 @@ def flash_relpos_mhsa(
         t.requires_grad for t in (q, k, v, p, bias_u, bias_v)
     ):
         return _Flash.apply(*args)
-    return _launch_fwd(*args, need_lse=False)[0]
+    return _forward(*args, need_lse=False)[0]
 
 
 flash_relpos_mhsa.launches = 0

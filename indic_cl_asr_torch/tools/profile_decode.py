@@ -1,6 +1,7 @@
 """Where the fused greedy RNNT decode's time goes, from CUDA events alone.
 
     python -m indic_cl_asr_torch.tools.profile_decode [--clusters 4,8,16] [--out FILE.json]
+    python -m indic_cl_asr_torch.tools.profile_decode --beam [--parent ROOT] [--out FILE.json]
 
 At flagship widths (pred and joint 640, 12 languages x 256 tokens +
 blank, bf16) with seeded random weights (heads scaled by 8, as
@@ -22,6 +23,19 @@ frames opening an emission), it measures:
   with the SMs a row draws its weights through, which separates the part
   the L2 draw sets from the part the barriers set.
 
+Beam mode, ``--beam [--parent ROOT]``: the fused beam
+(``ops/beam_fused.py``) of this checkout and of the checkout under ROOT
+(the parent, unpacked with ``git archive``), each in processes of its own
+that import that checkout's package, in turns (parent, this, this,
+parent), on the same seeded inputs: B16 T204 in one language, K4 P4,
+max_expansions 10, max_out 256, bf16, the blank bias at the quantiles
+above. For each it gives the B16 launch (CUDA events, device ms) and its
+work counters, ms per round of the launch's longest row, each row alone
+as a B1 launch with its counters, the single-row fit ``ms = a + b *
+joint evaluations + c * LSTM steps`` with µs per round of the rows, and
+the work counters of one f32 launch on the same inputs (equal in both
+checkouts when both take the plain version's decisions).
+
 Prints one line per measurement and the whole record as JSON (also to
 ``--out``). Needs a CUDA card; exits 2 without one.
 """
@@ -36,9 +50,17 @@ import sys
 
 import torch
 
-from ..models.hybrid import HybridRNNTCTC, flagship_config, init_weights_
-from ..ops import _build
-from ..ops import decode_fused as dfm
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _port():
+    """(models.hybrid, ops._build, ops.decode_fused, ops.beam_fused) of the
+    package sys.path finds first: the beam mode's processes put the
+    checkout under test there before this import."""
+    from indic_cl_asr_torch.models import hybrid
+    from indic_cl_asr_torch.ops import _build, beam_fused, decode_fused
+
+    return hybrid, _build, decode_fused, beam_fused
 
 
 def _ms(fn, iters, warmup=1):
@@ -71,6 +93,7 @@ def _blank_bias(model, f_proj, lens, lang, q):
 
 
 def _counted(fn):
+    dfm = _port()[2]
     dfm.reset_counts()
     out = fn()
     return out, dfm.work_counts()
@@ -79,6 +102,7 @@ def _counted(fn):
 def profile(B=16, T=204, seed=1, qs=(0.99, 0.97, 0.9), iters=5, clusters=None):
     """The record above, for the kernel's cluster size or, with
     ``clusters``, for each size given (under "by_cluster")."""
+    dfm = _port()[2]
     if not clusters:
         return _profile(B, T, seed, qs, iters)
     keep = dfm.CLUSTER
@@ -98,9 +122,10 @@ def profile(B=16, T=204, seed=1, qs=(0.99, 0.97, 0.9), iters=5, clusters=None):
 
 
 def _profile(B, T, seed, qs, iters):
+    hybrid, _, dfm, _ = _port()
     dev = torch.device("cuda")
-    model = HybridRNNTCTC(flagship_config(torch.bfloat16, n_layers=1), device=dev)
-    init_weights_(model, torch.Generator().manual_seed(seed))
+    model = hybrid.HybridRNNTCTC(hybrid.flagship_config(torch.bfloat16, n_layers=1), device=dev)
+    hybrid.init_weights_(model, torch.Generator().manual_seed(seed))
     g = torch.Generator().manual_seed(T)
     f_proj = torch.randn((B, T, 640), generator=g).to(dev, torch.bfloat16)
     lens = torch.randint(T // 2, T + 1, (B,), generator=g).to(dev)
@@ -150,19 +175,150 @@ def _profile(B, T, seed, qs, iters):
     return rec
 
 
+def _beam_fit(xs, ys):
+    sol = torch.linalg.lstsq(torch.tensor(xs, dtype=torch.float64),
+                             torch.tensor(ys, dtype=torch.float64)[:, None]).solution[:, 0]
+    resid = torch.tensor(xs, dtype=torch.float64) @ sol - torch.tensor(ys, dtype=torch.float64)
+    return [float(v) for v in sol], float(resid.abs().max())
+
+
+def beam_profile(B=16, T=204, seed=1, qs=(0.99, 0.97, 0.9), iters=5, dev="cuda"):
+    """The beam mode's record for the checkout whose package this process
+    imported (every name is looked up in it, so two checkouts run this
+    same procedure)."""
+    hybrid, _, _, bfm = _port()
+    dev = torch.device(dev)
+    kw = dict(beam_size=4, topk=4, max_expansions=10, max_out=256)
+    models = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        models[dtype] = hybrid.HybridRNNTCTC(hybrid.flagship_config(dtype, n_layers=1),
+                                             device=dev)
+        hybrid.init_weights_(models[dtype], torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(T)
+    f32 = torch.randn((B, T, models[torch.float32].cfg.joint_hidden), generator=g).to(dev)
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g).to(dev)
+    lang = torch.full((B,), 3, dtype=torch.int32, device=dev)
+    rec = {"batch": B, "frames": T, **kw, "levels": []}
+    xs, ys = [], []
+    with torch.inference_mode():
+        for dtype, model in models.items():
+            model.joint.head_kernel.mul_(8.0)
+            f_proj = f32.to(dtype)
+            for q in (qs if dtype == torch.bfloat16 else qs[1:2]):
+                model.joint.head_bias[:, -1] = _blank_bias(model, f_proj, lens, lang, q)
+                args = (f_proj, lens, lang, model)
+                bfm.reset_counts()
+                _, n, _ = bfm.rnnt_beam_search_fused(*args, **kw)
+                work = bfm.work_counts()
+                if dtype == torch.float32:
+                    rec["f32_work"] = work
+                    print(f"  f32 at blank quantile {q}: B{B} work {work}", flush=True)
+                    continue
+                launch_ms = _ms(lambda: bfm.rnnt_beam_search_fused(*args, **kw), iters)
+                rows = []
+                for r in range(B):
+                    one = (f_proj[r:r + 1], lens[r:r + 1], lang[r:r + 1], model)
+                    bfm.reset_counts()
+                    bfm.rnnt_beam_search_fused(*one, **kw)
+                    w = bfm.work_counts()
+                    ms = _ms(lambda: bfm.rnnt_beam_search_fused(*one, **kw), 3)
+                    rows.append({"frames": int(lens[r]), "tokens": int(n[r]), **w, "ms": ms,
+                                 "us_per_round": 1e3 * ms / max(w["rounds"], 1)})
+                    xs.append([1.0, w["joint_evals"], w["lstm_steps"]])
+                    ys.append(ms)
+                slow = max(range(B), key=lambda r: rows[r]["ms"])
+                longest = max(range(B), key=lambda r: rows[r]["rounds"])
+                level = {"q": q, "launch_ms": launch_ms, "work": work, "rows": rows,
+                         "slowest_row": slow, "slowest_row_ms": rows[slow]["ms"],
+                         "longest_row_rounds": rows[longest]["rounds"],
+                         "launch_us_per_longest_row_round":
+                             1e3 * launch_ms / max(rows[longest]["rounds"], 1),
+                         "rows_us_per_round": sum(r_["us_per_round"] for r_ in rows) / B}
+                rec["levels"].append(level)
+                print(f"  bf16 at blank quantile {q}: B{B} launch {launch_ms:.4f} ms, work "
+                      f"{work}; longest row {rows[longest]['rounds']} rounds "
+                      f"({level['launch_us_per_longest_row_round']:.2f} us a round of it); "
+                      f"rows alone {level['rows_us_per_round']:.2f} us a round on average, "
+                      f"slowest {rows[slow]['ms']:.4f} ms", flush=True)
+    (a, b, c), resid = _beam_fit(xs, ys)
+    rec["fit"] = {"a_ms": a, "us_per_joint": b * 1e3, "us_per_lstm_step": c * 1e3,
+                  "max_abs_residual_ms": resid, "points": len(ys)}
+    print(f"  single-row fit over {len(ys)} launches: {a:.4f} ms + {b * 1e3:.3f} us a joint "
+          f"evaluation + {c * 1e3:.3f} us an LSTM step (max residual {resid:.4f} ms)",
+          flush=True)
+    return rec
+
+
+def _beam_child(root: str) -> int:
+    """Run beam_profile on the package under ``root``; print its record."""
+    sys.path.insert(0, root)
+    build = _port()[1]
+    build.build(["beam_fused"])
+    ptxas = [line.strip() for line in build.BUILD_LOG.get("beam_fused", "").splitlines()
+             if "registers" in line or "spill" in line]
+    rec = {"root": root, "ptxas": ptxas, **beam_profile()}
+    print("BEAM " + json.dumps(rec), flush=True)
+    return 0
+
+
+def beam_compare(parent: str) -> dict:
+    """Parent, this checkout, this checkout, parent: each a process of its
+    own running beam_profile on its package."""
+    runs = []
+    for root in (parent, HERE, HERE, parent):
+        print(f" {'this checkout' if root == HERE else 'parent'} ({root}):", flush=True)
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--beam-child", root],
+                              capture_output=True, text=True)
+        for line in proc.stdout.splitlines():
+            if not line.startswith("BEAM "):
+                print(line, flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"beam profile of {root} failed:\n{proc.stderr[-4000:]}")
+        runs.append(json.loads(next(line[5:] for line in proc.stdout.splitlines()
+                                    if line.startswith("BEAM "))))
+    summary = []
+    for r in runs:
+        lv = {lvl["q"]: round(lvl["launch_ms"], 4) for lvl in r["levels"]}
+        summary.append({"root": r["root"], "launch_ms": lv, "fit": r["fit"],
+                        "f32_work": r["f32_work"]})
+        print(f"  {r['root']}: B16 launch ms by blank quantile {lv}; fit {r['fit']}; f32 work "
+              f"{r['f32_work']}", flush=True)
+    equal = all(r["f32_work"] == runs[0]["f32_work"] for r in runs)
+    print(f"  f32 work counters equal in every run: {equal}", flush=True)
+    return {"runs": runs, "summary": summary, "f32_work_equal": equal}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--out", default=None, help="also write the record here")
     p.add_argument("--clusters", default=None,
                    help="comma-separated cluster sizes to measure (default: the kernel's)")
+    p.add_argument("--beam", action="store_true",
+                   help="time the fused beam of this checkout against --parent's")
+    p.add_argument("--parent", default=os.path.join(HERE, "build", "parent"),
+                   help="the other checkout of the beam mode (default: build/parent)")
+    p.add_argument("--beam-child", default=None, help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.beam_child:
+        return _beam_child(args.beam_child)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown"
     print(card, flush=True)
+    if args.beam:
+        rec = {"card": card, "torch": torch.__version__,
+               **beam_compare(os.path.abspath(args.parent))}
+        text = json.dumps(rec)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                f.write(text + "\n")
+        print(text)
+        return 0
+    _build = _port()[1]
     _build.build(["decode_fused"])
     for line in _build.BUILD_LOG.get("decode_fused", "").splitlines():
         if "registers" in line or "spill" in line or "smem" in line:

@@ -19,7 +19,8 @@ training step passes them (its parameters), timed as
 ``chip_smoke.py``'s ``flash_bwd_timings`` times it (eager on those
 operands, and on operands cast first eager, over a graph and on the
 device), with each gradient's max error over max|ref| against the plain
-version's autograd. The procedure is this
+version's autograd; and the backward at D 128 (B16 T204 H4, the scalar
+kernel in bf16), timed the same way. The procedure is this
 checkout's, so two checkouts are measured the same way: run it for each,
 in turns, on one card. Prints one JSON line. Needs a CUDA card; exits 2
 without one.
@@ -86,6 +87,29 @@ def main() -> int:
         out[f"backward {name}"] = {**cs.flash_bwd_timings((*step, lse, dout), **kw),
                                    "max_rel_err": max(errs), "shape": list(q.shape),
                                    "lens": lens.tolist()}
+    # the backward at D 128 (d_model 512 in 4 heads; the tensor-core kernel
+    # stops at D 64, so the scalar kernel in bf16, 32 query rows a block) on
+    # the flagship case's lengths, without dropout; a checkout whose
+    # backward refuses D 128 is recorded as such
+    args = cs.flash_inputs(16, 204, 4, 128, cs.FLASH_LENS, torch.bfloat16, dev, seed=221)
+    q, lens = args[0], args[6]
+    kw = dict(n_heads=4, dropout_rate=0.0, seed=5)
+    name = "backward B16 T204 H4 D128"
+    with torch.inference_mode():
+        _, lse = fm._launch_fwd(*args[:4], args[4].to(q.dtype), args[5].to(q.dtype), lens,
+                                4, -1, -1, 0.0, 5, need_lse=True)
+    dout = torch.randn(q.shape, generator=torch.Generator().manual_seed(4)).to(dev, q.dtype)
+    step = (*args[:4], args[4].float(), args[5].float(), lens)
+    try:
+        got = fm.flash_relpos_mhsa_backward(*step, lse, dout, **kw)
+    except ValueError as e:
+        out[name] = {"refused": str(e)}
+    else:
+        want = fm.flash_relpos_mhsa_backward_reference(*step, dout, **kw)
+        errs = [(a.float() - b.float()).abs().max().item() / b.float().abs().max().item()
+                for a, b in zip(got, want)]
+        out[name] = {**cs.flash_bwd_timings((*step, lse, dout), **kw),
+                     "max_rel_err": max(errs), "shape": list(q.shape), "lens": lens.tolist()}
     print(json.dumps(out), flush=True)
     return 0
 

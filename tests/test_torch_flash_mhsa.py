@@ -25,6 +25,13 @@ package's Pallas kernel in interpret mode: in f32 to atol 1e-5, in bf16 to
 the card's bar of 2e-2 of max|ref| with and without dropout; with a
 (0, 0) band (one key a row, P exactly 1) its dqu, dqv, dk and dp are
 exactly zero, as the card test asks of the kernel.
+
+Head dims the kernels are not built for (the wrapper pads each head with
+zeros to the next of 16, 32, 64, 128 and keeps the unpadded scale): the
+padded plain version, sliced back, equals the unpadded one exactly at D
+48, 80 and 128 with and without dropout, its gradients too (the bias
+gradients' sums within 1e-6 of their scale), and matches the JAX Pallas
+kernel in interpret mode at D 48 to atol 1e-5.
 """
 
 import math
@@ -45,6 +52,9 @@ from indic_cl_asr_torch.ops.flash_mhsa import (
     flash_relpos_mhsa,
     flash_relpos_mhsa_reference,
     keep_threshold,
+    kernel_head_dim,
+    pad_heads,
+    unpad_heads,
     work,
     work_backward,
 )
@@ -136,6 +146,76 @@ def test_aligned_copies_only_misaligned_operands():
     assert view.data_ptr() % 16 != 0
     got = _aligned(view)
     assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+
+
+def _padded_plain(leaves, lens, H, D, **kw):
+    """The CUDA wrapper's route for a head dim the kernels are not built
+    for, with the plain version in the kernels' place: each head
+    zero-padded to ``kernel_head_dim(D)``, the padded call at the unpadded
+    scale 1/sqrt(D), the output sliced back to D columns a head."""
+    dk = kernel_head_dim(D)
+    q, k, v, p = (pad_heads(t, H, dk) for t in leaves[:4])
+    u, vb = (pad_heads(b.reshape(-1), H, dk).reshape(H, dk) for b in leaves[4:])
+    out = flash_relpos_mhsa_reference(q, k, v, p, u, vb, lens, n_heads=H,
+                                      scale=1.0 / math.sqrt(D), **kw)
+    return unpad_heads(out, H, D)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("D", [48, 80, 128])
+def test_padded_heads_equal_the_unpadded_plain_version(D, rate):
+    """Zero columns add nothing to a dot product and the dropout bits hash
+    (seed, b, h, t, j), not D: the padded route's output equals the
+    unpadded plain version exactly, with and without dropout. Gradients
+    through the padding and slicing: q, k, v and p exactly; the bias
+    gradients (sums over B and T, in an order the tensor's width sets)
+    within 1e-6 of their scale. At D 128, a kernel head dim, padding is
+    the identity."""
+    H, T = 3, 21
+    args = [torch.from_numpy(a) for a in _inputs(D, 3, T, H, D, [21, 9, 0])]
+    lens = args[6]
+    assert kernel_head_dim(D) == {48: 64, 80: 128, 128: 128}[D]
+    kw = dict(dropout_rate=rate, seed=4)
+    plain_in = [a.clone().requires_grad_(True) for a in args[:6]]
+    padded_in = [a.clone().requires_grad_(True) for a in args[:6]]
+    want = flash_relpos_mhsa_reference(*plain_in, lens, n_heads=H, **kw)
+    got = _padded_plain(padded_in, lens, H, D, **kw)
+    assert got.shape == want.shape and torch.equal(got, want)
+    dout = torch.from_numpy(np.random.default_rng(D).standard_normal(want.shape).astype(np.float32))
+    g_want = torch.autograd.grad(want, plain_in, dout)
+    g_got = torch.autograd.grad(got, padded_in, dout)
+    for name, g, w in zip(("q", "k", "v", "p"), g_got, g_want):
+        assert torch.equal(g, w), name
+    for name, g, w in zip(("bias_u", "bias_v"), g_got[4:], g_want[4:]):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-6 * w.abs().max().item(), name
+
+
+def test_padded_heads_match_pallas_interpret_at_d48():
+    """The padded route at D 48 against the JAX package's Pallas kernel in
+    interpret mode, which takes any head dim, atol 1e-5."""
+    T, H, D, lens = 37, 2, 48, [37, 20, 0]
+    args = _inputs(T + 7, len(lens), T, H, D, lens)
+    got = _padded_plain([torch.from_numpy(a) for a in args[:6]],
+                        torch.from_numpy(args[6]), H, D).numpy()
+    ref = jax_flash(*(jnp.asarray(a) for a in args), n_heads=H, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL)
+
+
+def test_pad_heads_layout_and_the_head_dim_limit():
+    """Each head's D columns, then zeros; unpad_heads undoes it; D above
+    128 has no kernel head dim."""
+    t = torch.arange(2 * 3 * 5, dtype=torch.float32).reshape(2, 3 * 5)
+    padded = pad_heads(t, 3, 16)
+    assert padded.shape == (2, 48)
+    heads = padded.reshape(2, 3, 16)
+    assert torch.equal(heads[..., :5], t.reshape(2, 3, 5)) and not heads[..., 5:].any()
+    assert torch.equal(unpad_heads(padded, 3, 5), t)
+    assert pad_heads(t, 3, 5) is t and unpad_heads(t, 3, 5) is t
+    assert [kernel_head_dim(d) for d in (1, 16, 17, 33, 64, 65, 128)] == [16, 16, 32, 64, 64,
+                                                                            128, 128]
+    with pytest.raises(ValueError):
+        kernel_head_dim(129)
 
 
 def test_work_counts_visible_pairs():

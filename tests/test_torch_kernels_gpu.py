@@ -20,7 +20,8 @@ f32; a tiny training step on the card against the same step on the CPU
 (losses rel 1e-4, gradients 1e-3 of their scale); the fused beam's ids
 and lens equal to its plain version's in f32 and scores within 1e-5 of
 |score|, except rows where the plain version's trace shows two competing
-candidates within 1e-5 of each other.
+candidates within 1e-5 of each other (the beam kernel sums a
+hypothesis's log-softmax by the blocks of its row's cluster).
 """
 
 import pytest
@@ -78,7 +79,9 @@ def _flash_inputs(B, T, H, D, lens, dtype, dev):
      (2, 129, 2, 128, (-1, -1)),
      # the 64-row tiles' edges, and a CL evaluation batch's shape
      (2, 63, 8, 64, (-1, -1)), (2, 64, 8, 64, (-1, -1)), (2, 128, 8, 64, (-1, -1)),
-     (4, 104, 8, 64, (-1, -1))],
+     (4, 104, 8, 64, (-1, -1)),
+     # head dims the kernels run zero-padded: 80 at D 128, 48 at D 64
+     (2, 70, 4, 80, (-1, -1)), (3, 37, 6, 48, (16, 0))],
 )
 def test_flash_kernel_matches_plain(cuda, dtype, atol, B, T, H, D, band):
     lens = [T] + [max(0, T - 9 * i) for i in range(1, B - 1)] + ([0] if B > 1 else [])
@@ -202,7 +205,11 @@ def test_flash_kernel_with_dropout_matches_plain_bf16(cuda, B, T, H, D, band):
 @pytest.mark.parametrize(
     "B,T,H,D,band",
     [(16, 204, 8, 64, (-1, -1)), (3, 37, 8, 64, (16, 0)), (2, 1, 8, 64, (-1, -1)),
-     (2, 512, 8, 64, (-1, -1)), (2, 70, 2, 32, (20, 10)), (2, 65, 4, 16, (-1, 5))],
+     (2, 512, 8, 64, (-1, -1)), (2, 70, 2, 32, (20, 10)), (2, 65, 4, 16, (-1, 5)),
+     # D 128 (d_model 512 in 4 heads; the scalar kernel, 32 query rows a
+     # block, in both dtypes), and head dims run zero-padded to 128 and 64
+     (4, 204, 4, 128, (-1, -1)), (3, 70, 4, 128, (20, 10)), (2, 70, 4, 80, (-1, -1)),
+     (3, 37, 6, 48, (16, 0))],
 )
 def test_flash_backward_matches_plain_autograd(cuda, dtype, rtol, rate, B, T, H, D, band):
     lens = [T] + [max(0, T - 9 * i) for i in range(1, B - 1)] + ([0] if B > 1 else [])
@@ -631,7 +638,7 @@ def _beam_model(cfg, dev, lang, f_proj, q=0.97):
         model.joint.head_kernel.mul_(8.0)
         B = f_proj.shape[0]
         g0, _ = model.pred_step(torch.full((B,), model.cfg.blank_local, device=dev), None)
-        logits = torch.einsum("bth,bhv->btv", torch.relu(f_proj + g0[:, None]),
+        logits = torch.einsum("bth,bhv->btv", torch.relu(f_proj.float() + g0.float()[:, None]),
                               model.joint.head_kernel[lang.long()])
         margin = logits[..., :-1].amax(-1) - logits[..., -1]
         model.joint.head_bias[:, -1] = torch.quantile(margin.flatten().float(), q)
@@ -654,19 +661,29 @@ def _beam_agrees(got, want, trace):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "width,T,beam,max_out,mixed",
-    [("tiny", 40, 4, 64, True), ("tiny", 40, 1, 64, False), ("tiny", 40, 3, 6, False),
-     ("flagship", 204, 4, 256, False), ("flagship", 204, 4, 256, True),
-     ("flagship", 120, 4, 12, False)],
+    "width,T,beam,max_out,mixed,topk",
+    [("tiny", 40, 4, 64, True, None), ("tiny", 40, 1, 64, False, None),
+     ("tiny", 40, 3, 6, False, None),
+     ("flagship", 204, 4, 256, False, None), ("flagship", 204, 4, 256, True, None),
+     ("flagship", 120, 4, 12, False, None),
+     # the kernel's limits, beam 8 and topk 16, in one language and mixed
+     ("flagship", 204, 8, 256, False, 16), ("flagship", 204, 8, 256, True, 16),
+     ("tiny", 40, 8, 64, True, 16),
+     # 1024 tokens a language: each block ranks over 100 head columns
+     ("wide vocab", 40, 4, 64, True, None)],
 )
-def test_beam_kernel_matches_plain_f32(cuda, width, T, beam, max_out, mixed):
+def test_beam_kernel_matches_plain_f32(cuda, width, T, beam, max_out, mixed, topk):
     """The fused beam against the batched beam over the model's own steps
     in f32, at a small and at the flagship width (pred/joint 640, 12
     languages x 256 tokens + blank), with a zero-length row, unequal
-    lengths, mixed languages, beam 1 and a max_out that caps rows."""
+    lengths, mixed languages, beam 1, beam 8 with topk 16 and a max_out
+    that caps rows. At the small width (17 classes) some blocks of a row's
+    cluster hold no head column; with 1025 classes each holds more than 64
+    (ranked from shared memory, not by shuffles)."""
     from indic_cl_asr_torch.ops import beam_fused as bfm
 
     cfg = (tiny_config(dtype=torch.float32) if width == "tiny"
+           else tiny_config(dtype=torch.float32, vocab_size_total=4096) if width == "wide vocab"
            else flagship_config(torch.float32, n_layers=1))
     B, H = 16, cfg.joint_hidden
     g = torch.Generator().manual_seed(T + beam)
@@ -676,7 +693,7 @@ def test_beam_kernel_matches_plain_f32(cuda, width, T, beam, max_out, mixed):
     lens = lens.to(cuda)
     lang = (torch.arange(B) % cfg.n_langs if mixed else torch.full((B,), 1)).to(cuda)
     model = _beam_model(cfg, cuda, lang, f_proj)
-    kw = dict(beam_size=beam, max_expansions=6, max_out=max_out)
+    kw = dict(beam_size=beam, max_expansions=6, max_out=max_out, topk=topk)
     n0 = bfm.rnnt_beam_search_fused.launches
     with torch.inference_mode():
         got = bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, **kw)
@@ -700,10 +717,11 @@ def test_beam_kernel_rejects_what_it_does_not_take(cuda):
     lens = torch.full((2,), 5, device=cuda)
     lang = torch.zeros((2,), dtype=torch.int32, device=cuda)
     n0 = bfm.rnnt_beam_search_fused.launches
-    # eight hypotheses at flagship widths overflow one block's shared memory:
-    # the card refuses the launch and the wrapper raises its error
+    # eight hypotheses of 4096 tokens each (with their copy for the parent
+    # gather, 256 KB) overflow one block's shared memory: the card refuses
+    # the launch and the wrapper raises its error
     with pytest.raises(RuntimeError, match="CUDA error"):
-        bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, beam_size=8)
+        bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, beam_size=8, max_out=4096)
     with pytest.raises(ValueError):
         bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, beam_size=9)
     with pytest.raises(ValueError):  # two LSTM layers
@@ -715,3 +733,82 @@ def test_beam_kernel_rejects_what_it_does_not_take(cuda):
     assert bfm.rnnt_beam_search_fused.launches == 1
     work = bfm.work_counts()
     assert work["rounds"] > 0 and work["joint_evals"] >= work["rounds"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d_token", [0.3, 0.0])
+def test_beam_kernel_decides_merge_ties_as_the_plain_version(cuda, d_token):
+    """The joint's pred projection zeroed, so every hypothesis of a row
+    has the same log-probs in every frame, and each row's head bias set so
+    the blank leads, token 3 trails it by ``d_token``, token 5 by 2 and
+    the rest by 10 (tests/test_torch_beam.py builds the same case against
+    the JAX package): equal label sequences reached through other frames
+    score exactly alike, so the merge fires and the top-K meets exact
+    ties. The kernel, whose blocks merge the log-softmax by parts, takes
+    the plain version's decisions: ids and lens equal in every row,
+    scores within 1e-5·|score|."""
+    from indic_cl_asr_torch.ops import beam_fused as bfm
+
+    cfg = tiny_config(dtype=torch.float32)
+    B, T = 16, 5
+    model = init_weights_(HybridRNNTCTC(cfg, device=cuda), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(3)
+    f_proj = torch.randn((B, 1, cfg.joint_hidden), generator=g).repeat(1, T, 1).to(cuda)
+    lens = torch.full((B,), T, device=cuda)
+    lang = (torch.arange(B) % cfg.n_langs).to(cuda)
+    with torch.no_grad():
+        model.joint.pred.weight.zero_()
+        for b in range(cfg.n_langs):
+            x = torch.relu(f_proj[b, 0] + model.joint.pred.bias) @ model.joint.head_kernel[b]
+            bias = -8.0 - x
+            bias[-1] = 2.0 - x[-1]
+            bias[3] = 2.0 - d_token - x[3]
+            bias[5] = -x[5]
+            model.joint.head_bias[b] = bias
+    f_proj = f_proj[torch.arange(B) % cfg.n_langs]  # each language's own vector
+    kw = dict(beam_size=4, max_expansions=3, max_out=16)
+    with torch.inference_mode():
+        got = bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, **kw)
+        trace = []
+        want = bfm.rnnt_beam_search_fused_reference(f_proj, lens, lang, model, trace=trace,
+                                                    **kw)
+    torch.cuda.synchronize()
+    assert float(torch.stack(trace).amin()) == 0.0  # exact ties were decided
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert float(((got[2] - want[2]).abs() / want[2].abs()).max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,dtype", [(16, torch.float32), (40, torch.bfloat16)])
+def test_beam_kernel_counts_each_call_and_row_once(cuda, B, dtype):
+    """One launch a call with a cluster of blocks a row, and the work
+    counters count each row once (block 0 adds them), not once per block:
+    a batch's counters equal the sum of its rows launched alone, and the
+    rows' hypotheses equal the batch's; at B40 (320 blocks) the clusters
+    run in more than one wave."""
+    from indic_cl_asr_torch.ops import beam_fused as bfm
+
+    cfg = flagship_config(dtype, n_layers=1)
+    T = 120
+    g = torch.Generator().manual_seed(11)
+    f_proj = torch.randn((B, T, cfg.joint_hidden), generator=g).to(cuda, dtype)
+    lens = torch.randint(1, T + 1, (B,), generator=g)
+    lens[3] = 0
+    lens = lens.to(cuda)
+    lang = (torch.arange(B) % cfg.n_langs).to(cuda)
+    model = _beam_model(cfg, cuda, lang, f_proj)
+    kw = dict(beam_size=4, max_expansions=6, max_out=64)
+    bfm.reset_counts()
+    with torch.inference_mode():
+        ids, n, sc = bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, **kw)
+        batch = bfm.work_counts()
+        assert bfm.rnnt_beam_search_fused.launches == 1
+        bfm.reset_counts()
+        for r in range(B):
+            one = bfm.rnnt_beam_search_fused(f_proj[r:r + 1], lens[r:r + 1], lang[r:r + 1],
+                                             model, **kw)
+            assert torch.equal(one[0][0], ids[r]) and int(one[1][0]) == int(n[r])
+            assert float(one[2][0]) == float(sc[r])
+        rows = bfm.work_counts()
+    assert bfm.rnnt_beam_search_fused.launches == B
+    assert batch == rows and batch["rounds"] > 0 and int(n.sum()) > 0
