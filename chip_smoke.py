@@ -39,8 +39,12 @@ Phases, each of which fails the script when it fails:
    rebuilds the forward's scores bit for bit, and dv within 2e-2·max|ref|;
    the kernels' dropout bits equal to the plain version's, keep rate
    within 5e-3 of 1 - rate; the alpha and beta lattices at B16 T204
-   U+1 129 (rows with u_len 0, t_len 1, t_len < T): finite entries atol
-   1e-4, the NLL and both slab gradients rel 1e-5. The fused joint
+   U+1 129 (rows with u_len 0, t_len 1, t_len < T; the warp kernels) and
+   at B4 T64 U+1 600 (the block kernels): finite entries atol 1e-4, the
+   same finite set, the NLL and both slab gradients rel 1e-5. A flash
+   config at head dim 256 (d_model 512 in 2 heads, tiny otherwise): the
+   eager attention route, no flash launch, the card's encoder output
+   within 1e-4 of the CPU's in f32. The fused joint
    forward and backward at the flagship's B16 T204 U+1 129 H640 V+1 257
    (T not a multiple of the 8-frame tile, the rows' heads from two
    languages, a label outside the head) in f32 and bf16, dropout 0 and
@@ -54,7 +58,8 @@ Phases, each of which fails the script when it fails:
    version's, keep rate within 2e-3 of 0.8.
 4. The serving slice: 32 synthetic 16 kHz WAVs in two duration buckets,
    a char tokenizer trained here, the flagship model (17 layers, d512,
-   bf16, flash attention) with seeded random weights, transcribed with the
+   bf16, flash attention; its encoder's attention route printed) with
+   seeded random weights, transcribed with the
    RNNT and CTC decoders through ``Transcriber``. The launch counts are
    reset just before and read just after this run: flash launches must be
    17 x the encoder batches and decode launches the RNNT batches; three
@@ -88,8 +93,8 @@ Phases, each of which fails the script when it fails:
    bit-unchanged, and a falling loss over 30 steps on one batch. Prints
    ms/step, utts/s, peak memory and one profiled step; then times the
    three training kernels at the inputs the step gave them, the flash
-   backward also over a CUDA graph of calls and by its profiled device
-   time, beside the backward of ``scaled_dot_product_attention`` with the
+   backward and the lattices also over a CUDA graph of calls and by their
+   profiled device time (the lattice lines name the kernel that ran), beside the backward of ``scaled_dot_product_attention`` with the
    position scores given (a yardstick, not the same function) and the
    atomic instructions a launch reaches (``flash_bwd_atomics``).
 7. f32 equality of one step: flagship width at 4 layers (2 frozen), B4,
@@ -654,6 +659,8 @@ def run_slice(dev, rec):
                            bucket_spec=spec, **kw)
 
     model = HybridRNNTCTC(flagship_config(torch.bfloat16, attn_impl="flash"), device=dev)
+    rec["attention_route"] = model.encoder.attention_route
+    log(f"  flagship encoder attention route: {rec['attention_route']!r}")
     serving_weights_(model, seed=0)
     tr = transcriber(model, greedy_impl="fused")
     long = [e for e in entries if spec.bucket_of(e.duration) == 1][:16]
@@ -1259,49 +1266,103 @@ def check_flash_backward(dev, rec):
     rec["dropout_bits"] = {"equal": True, "keep_rate": keep}
 
 
-def lattice_inputs(dev, B=16, T=204, U1=129, seed=0):
+def lattice_inputs(dev, B=16, T=204, U1=129, seed=0, t_lens=None, u_lens=None):
+    """Seeded slabs [B, T, U1] and lengths; by default the flagship
+    training batch's shape with rows of u_len 0, t_len 1 and t_len < T."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     lb = -torch.rand((B, T, U1), generator=g) * 3
     ll = -torch.rand((B, T, U1), generator=g) * 3
-    t_lens = torch.tensor([T] * 12 + [1, 150, 100, T], dtype=torch.int32)
-    u_lens = torch.tensor([U1 - 1, 0, 64, 1] * 4, dtype=torch.int32)
+    t_lens = torch.tensor(t_lens or [T] * 12 + [1, 150, 100, T], dtype=torch.int32)
+    u_lens = torch.tensor(u_lens or [U1 - 1, 0, 64, 1] * 4, dtype=torch.int32)
     return lb.to(dev), ll.to(dev), t_lens.to(dev), u_lens.to(dev)
+
+
+# a lattice above the warp kernels' U+1 (ops/rnnt_loss.py:WARP_MAX_U1),
+# which the block kernels carry
+LATTICE_ABOVE = dict(B=4, T=64, U1=600, t_lens=[64, 1, 40, 64], u_lens=[599, 0, 300, 17])
 
 
 def check_lattice(dev, rec):
     import torch
 
+    from indic_cl_asr_torch.ops import _build
     from indic_cl_asr_torch.ops import rnnt_loss as R
 
-    lb, ll, tl, ul = lattice_inputs(dev)
-    lpb, lpl, _, _ = R._prepare(lb, ll, tl, ul)
-    out = {}
-    for name, got, want in (("alpha", R.rnnt_alpha(lpb, lpl), R._alpha_scan(lpb, lpl)),
-                            ("beta", R.rnnt_beta(lpb, lpl, ul), R._beta_scan(lpb, lpl, ul))):
-        fin = want > R.NEG_INF / 2
-        if not torch.equal(fin, got > R.NEG_INF / 2):
-            raise AssertionError(f"{name}: finite entries differ")
-        err = (got[fin] - want[fin]).abs().max().item()
-        out[name] = err
-        log(f"  {name} B16 T204 U+1 129: max abs err {err:.3e} on finite entries (tol 1e-4)")
-        if not (err <= 1e-4):
-            raise AssertionError(f"{name}: {err} > 1e-4")
-    x, y = lb.clone().requires_grad_(True), ll.clone().requires_grad_(True)
-    nll = R.rnnt_nll_from_logprobs(x, y, tl, ul)
-    gx, gy = torch.autograd.grad(nll.sum(), (x, y))
-    xp, yp = lb.clone().requires_grad_(True), ll.clone().requires_grad_(True)
-    nll_p = R.rnnt_nll_from_logprobs_reference(xp, yp, tl, ul)
-    gxp, gyp = torch.autograd.grad(nll_p.sum(), (xp, yp))
-    out["nll_rel"] = ((nll - nll_p).abs() / nll_p.abs()).max().item()
-    out["grad_rel"] = max((a - b).abs().max().item() / b.abs().max().item()
-                          for a, b in ((gx, gxp), (gy, gyp)))
-    log(f"  rnnt nll rel err {out['nll_rel']:.3e}, slab grads rel err "
-        f"{out['grad_rel']:.3e} (tol 1e-5)")
-    if not (out["nll_rel"] <= 1e-5 and out["grad_rel"] <= 1e-5):
-        raise AssertionError(f"rnnt loss through the lattice kernels: {out}")
-    rec["lattice_errors"] = out
+    if _build.load("rnnt_lattice").rnnt_lattice_warp_max_u1() != R.WARP_MAX_U1:
+        raise AssertionError("rnnt_lattice.cu's warp threshold differs from WARP_MAX_U1")
+    bad = R.lae_mismatches(dev)
+    rec["lattice_lae_mismatches"] = bad
+    log(f"  the lattice kernels' exp and log1p against expf over every float of [-inf, -0] "
+        f"and log1pf over every float of [0, 1]: {bad} differ (must be 0)")
+    if bad:
+        raise AssertionError(f"the lattice's exp or log1p differs from the library's at {bad}")
+    rec["lattice_errors"] = {}
+    for case in (dict(), LATTICE_ABOVE):
+        lb, ll, tl, ul = lattice_inputs(dev, **case)
+        B, T, U1 = lb.shape
+        name_case = f"B{B} T{T} U+1 {U1}"
+        lpb, lpl, _, _ = R._prepare(lb, ll, tl, ul)
+        out = {"kernel": R.lattice_kernel(U1)}
+        for name, got, want in (("alpha", R.rnnt_alpha(lpb, lpl), R._alpha_scan(lpb, lpl)),
+                                ("beta", R.rnnt_beta(lpb, lpl, ul), R._beta_scan(lpb, lpl, ul))):
+            fin = want > R.NEG_INF / 2
+            if not torch.equal(fin, got > R.NEG_INF / 2):
+                raise AssertionError(f"{name} {name_case}: finite entries differ")
+            err = (got[fin] - want[fin]).abs().max().item()
+            out[name] = err
+            log(f"  {name} {name_case} ({out['kernel']} kernel): max abs err {err:.3e} on "
+                f"finite entries (tol 1e-4)")
+            if not (err <= 1e-4):
+                raise AssertionError(f"{name} {name_case}: {err} > 1e-4")
+        x, y = lb.clone().requires_grad_(True), ll.clone().requires_grad_(True)
+        nll = R.rnnt_nll_from_logprobs(x, y, tl, ul)
+        gx, gy = torch.autograd.grad(nll.sum(), (x, y))
+        xp, yp = lb.clone().requires_grad_(True), ll.clone().requires_grad_(True)
+        nll_p = R.rnnt_nll_from_logprobs_reference(xp, yp, tl, ul)
+        gxp, gyp = torch.autograd.grad(nll_p.sum(), (xp, yp))
+        out["nll_rel"] = ((nll - nll_p).abs() / nll_p.abs()).max().item()
+        out["grad_rel"] = max((a - b).abs().max().item() / b.abs().max().item()
+                              for a, b in ((gx, gxp), (gy, gyp)))
+        log(f"  rnnt nll {name_case} rel err {out['nll_rel']:.3e}, slab grads rel err "
+            f"{out['grad_rel']:.3e} (tol 1e-5)")
+        if not (out["nll_rel"] <= 1e-5 and out["grad_rel"] <= 1e-5):
+            raise AssertionError(f"rnnt loss {name_case} through the lattice kernels: {out}")
+        rec["lattice_errors"][name_case] = out
+
+
+def check_head_dim_route(dev, rec):
+    """A flash config at head dim 256 (d_model 512 in 2 heads, 2 layers):
+    the eager route chosen at construction, no flash launch, and the card's
+    encoder output against the CPU's (f32, atol 1e-4)."""
+    import dataclasses
+
+    import torch
+
+    from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC, init_weights_, tiny_config
+    from indic_cl_asr_torch.ops.flash_mhsa import flash_relpos_mhsa
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, d_model=512, n_heads=2, attn_impl="flash"))
+    g = torch.Generator().manual_seed(7)
+    feats = torch.randn((3, 32, 96), generator=g)
+    lens = torch.tensor([96, 61, 9], dtype=torch.int32)
+    outs = {}
+    n0 = flash_relpos_mhsa.launches
+    for d in ("cpu", dev):
+        m = init_weights_(HybridRNNTCTC(cfg, device=d), torch.Generator().manual_seed(5))
+        with torch.no_grad():
+            outs[str(d)] = m.encode(feats.to(d), lens.to(d))[0].cpu()
+    route = m.encoder.attention_route
+    err = (outs[str(dev)] - outs["cpu"]).abs().max().item()
+    launches = flash_relpos_mhsa.launches - n0
+    rec["head_dim_256"] = {"route": route, "max_abs_err": err, "flash_launches": launches}
+    log(f"  flash config at head dim 256: attention route {route!r}, flash launches "
+        f"{launches}, card vs CPU encoder max abs err {err:.3e} (tol 1e-4)")
+    if route != "xla" or launches or not (err <= 1e-4):
+        raise AssertionError(f"head dim 256 encoder: {rec['head_dim_256']}")
 
 
 def joint_inputs(dev, dtype, B=16, T=204, U1=129, H=640, V1=257, seed=0):
@@ -1740,6 +1801,8 @@ def time_training_kernels(captured, launches, rec):
         fin = want > R.NEG_INF / 2
         err = (got[fin] - want[fin]).abs().max().item()
         ms = cuda_ms(fn)
+        graph = cuda_graph_ms(fn)
+        dev_ms = device_ms(fn, "beta" if beta else "alpha")
         plain = cuda_ms(plain_fn, iters=3, warmup=1)
         nbytes, flops = R.work(B, T, U1, beta=beta)
         b_ms, b_by = bound_ms(nbytes, flops)
@@ -1750,10 +1813,13 @@ def time_training_kernels(captured, launches, rec):
                          else "indic_cl_asr_tpu/ops/rnnt_loss_pallas.py:94"),
             "launches": launches[name], "max_abs_err": err,
             "ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None,
+            "library_ms": None, "kernel": R.lattice_kernel(U1), "graph_ms": graph,
+            "device_ms": dev_ms,
         })
-        log(f"  {name} B{B} T{T} U+1 {U1}: {ms:.4f} ms, plain {plain:.4f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by}; {nbytes} B, {flops} flop), err {err:.3e}")
+        log(f"  {name} B{B} T{T} U+1 {U1} ({R.lattice_kernel(U1)} kernel): {ms:.4f} ms "
+            f"(over a graph of calls {graph:.4f}, profiled device time {dev_ms:.4f}), plain "
+            f"{plain:.4f} ms, bound {b_ms:.5f} ms ({b_by}; {nbytes} B, {flops} flop), "
+            f"err {err:.3e}")
     return lines
 
 
@@ -2272,6 +2338,7 @@ def main() -> int:
     check_beam(dev, rec)
     check_flash_backward(dev, rec)
     check_lattice(dev, rec)
+    check_head_dim_route(dev, rec)
     check_joint(dev, rec)
 
     log("[4/8] serving slice (flagship width, seeded random weights)")

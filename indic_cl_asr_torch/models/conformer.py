@@ -16,6 +16,10 @@ MHSA and the conv module with BatchNorm):
     (ops/flash_mhsa.py); ``"xla"`` is the eager path with the JAX XLA
     path's rounding: content and position scores rounded to the compute
     dtype, an f32 softmax, -1e9 masking and zeroed masked probabilities.
+    ``attention_route`` resolves the route once from the config, as the
+    JAX module routes T > 512 and global tokens to XLA: a flash config
+    whose head dim exceeds the kernels' largest (128) takes the eager
+    path;
 
 Parameters are f32 and cast to ``cfg.dtype`` where they are used
 (models/common.py). Train mode (``module.train()``) follows the JAX
@@ -49,7 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.flash_mhsa import flash_relpos_mhsa
+from ..ops.flash_mhsa import MAX_HEAD_DIM, flash_relpos_mhsa
 from .common import Conv1d, Conv2d, Dense, LayerNorm, Rngs, cast, dropout
 
 
@@ -139,11 +143,22 @@ class ConvSubsampling(nn.Module):
         return self.out(h)
 
 
+def attention_route(cfg: ConformerConfig) -> str:
+    """The attention path of every layer of ``cfg``: "flash" (the CUDA
+    kernels) for ``attn_impl="flash"`` at head dims the kernels take,
+    else "xla" (the eager path). Above head dim 128 the kernels would
+    need tiles split along D; until they exist those configs run eager."""
+    if cfg.attn_impl == "flash" and cfg.d_model // cfg.n_heads <= MAX_HEAD_DIM:
+        return "flash"
+    return "xla"
+
+
 class RelPosSelfAttention(nn.Module):
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
         d, H = cfg.d_model, cfg.n_heads
         self.cfg = cfg
+        self.route = attention_route(cfg)
         self.linear_q = Dense(d, d, dtype=cfg.dtype)
         self.linear_k = Dense(d, d, dtype=cfg.dtype)
         self.linear_v = Dense(d, d, dtype=cfg.dtype)
@@ -162,7 +177,7 @@ class RelPosSelfAttention(nn.Module):
         p = self.linear_pos(pos_emb)  # [2T-1, d]
         drop = cfg.dropout_att if self.training else 0.0
         left, right = cfg.att_context_size
-        if cfg.attn_impl == "flash":
+        if self.route == "flash":
             seed = 0
             if drop > 0.0:
                 if rngs is None:
@@ -321,8 +336,12 @@ class ConformerEncoder(nn.Module):
         if cfg.attn_impl not in ("xla", "flash"):
             raise ValueError(f"attn_impl={cfg.attn_impl!r}")
         self.cfg = cfg
+        self.attention_route = attention_route(cfg)
         self.pre_encode = ConvSubsampling(cfg)
         self.layers = nn.ModuleList(ConformerLayer(cfg) for _ in range(cfg.n_layers))
+
+    def extra_repr(self) -> str:
+        return f"attention_route={self.attention_route!r}"
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 rngs: Rngs | None = None):
@@ -341,7 +360,7 @@ class ConformerEncoder(nn.Module):
         idx = torch.arange(T, device=x.device)
         pad_mask = idx[None, :] < out_lens[:, None]
         att_mask = None
-        if cfg.attn_impl == "xla":
+        if self.attention_route == "xla":
             att_mask = pad_mask[:, :, None] & pad_mask[:, None, :]
             left, right = cfg.att_context_size
             rel = idx[None, :] - idx[:, None]

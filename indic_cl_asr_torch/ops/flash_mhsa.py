@@ -61,7 +61,9 @@ _NEG = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' head dims, forward and backward; any other D up to 128 runs
 # zero-padded to the next of them (pad_heads), above 128 the wrappers raise
+# (models/conformer.py:attention_route sends such configs to the eager path)
 _HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = _HEAD_DIMS[-1]
 _M32 = 0xFFFFFFFF
 
 

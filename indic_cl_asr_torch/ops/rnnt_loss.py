@@ -20,7 +20,10 @@ and ``rnnt_beta``, which replace the TPU kernels
 ``_beta_scan``, are the JAX package's anti-diagonal recurrences written as
 Python loops over diagonals. PyTorch has no fused scan, so on the card the
 ~332 diagonals of a flagship lattice (T 204 + U+1 129 - 1) are one launch
-each way instead of thousands of small ones.
+each way instead of thousands of small ones. Up to U+1 = ``WARP_MAX_U1``
+one warp carries a batch row (its diagonal in registers, the slabs staged
+ahead of it in shared memory); above it, up to 1024, one block a row
+(``lattice_kernel`` names the one a U+1 takes).
 """
 
 from __future__ import annotations
@@ -32,6 +35,10 @@ import torch
 from . import _build
 
 NEG_INF = -1e30  # large-but-finite to keep arithmetic NaN-free
+# the largest U+1 the warp kernels take: their two staging rings,
+# 2·(U+1 + 17)·32·ceil((U+1)/32)·4 bytes, fit a block's shared memory up
+# to 160 (csrc/rnnt_lattice.cu's LATTICE_WARP_MAX_U1)
+WARP_MAX_U1 = 160
 
 
 def _logaddexp(a, b):
@@ -122,7 +129,28 @@ def _check_slabs(lpb, lpl):
     if lpb.device != lpl.device or lpb.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported devices {lpb.device}, {lpl.device}")
     if lpb.shape[2] > 1024:
-        raise ValueError(f"U+1 = {lpb.shape[2]} > 1024: one thread per label column")
+        raise ValueError(f"U+1 = {lpb.shape[2]} > 1024: the block kernel runs one "
+                         "thread per label column")
+
+
+def lae_mismatches(device) -> int:
+    """The arguments at which the kernels' exp and log1p (csrc/rnnt_lattice.cu:
+    exp_nonpos, log1p_nonneg: the math library's expf and log1pf, step by
+    step) differ in any bit from expf over [-inf, -0] and log1pf over
+    [0, 1], the arguments a logaddexp gives them; 0 where the copies are
+    exact."""
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    lib = _build.load("rnnt_lattice")
+    stream = torch.cuda.current_stream(count.device).cuda_stream
+    _build.check(lib, lib.rnnt_lae_mismatches(_build.ptr(count), ctypes.c_void_p(stream)),
+                 "rnnt_lae_mismatches")
+    return int(count.item())
+
+
+def lattice_kernel(U1: int) -> str:
+    """The kernel that carries a lattice of U+1 = ``U1`` columns on the
+    card: "warp" (one warp a row) or "block" (one block a row)."""
+    return "warp" if U1 <= WARP_MAX_U1 else "block"
 
 
 def rnnt_alpha(lpb: torch.Tensor, lpl: torch.Tensor) -> torch.Tensor:
@@ -177,6 +205,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rnnt_alpha.restype = i
     lib.rnnt_beta.argtypes = [vp, vp, vp, vp, i, i, i, vp]
     lib.rnnt_beta.restype = i
+    lib.rnnt_lattice_warp_max_u1.argtypes = []
+    lib.rnnt_lattice_warp_max_u1.restype = i
+    lib.rnnt_chain_floor.argtypes = [vp, vp, i, i, vp]
+    lib.rnnt_chain_floor.restype = i
+    lib.rnnt_lae_mismatches.argtypes = [vp, vp]
+    lib.rnnt_lae_mismatches.restype = i
 
 
 _build.BINDERS["rnnt_lattice"] = _bind

@@ -302,13 +302,26 @@ def _lattice_inputs(B, T, U1, t_lens, u_lens, dev):
     return lb.to(dev), ll.to(dev), tl.to(dev), ul.to(dev)
 
 
+_W = R.WARP_MAX_U1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "B,T,U1,t_lens,u_lens",
     [(16, 204, 129, [204] * 12 + [1, 150, 100, 204], [128, 0, 64, 1] * 4),
-     (3, 7, 4, [7, 5, 3], [3, 2, 1]), (2, 1, 1, [1, 1], [0, 0])],
+     (3, 7, 4, [7, 5, 3], [3, 2, 1]), (2, 1, 1, [1, 1], [0, 0]),
+     (4, 37, 32, [37, 1, 20, 37], [31, 0, 5, 31]), (4, 37, 33, [37, 1, 20, 37], [32, 0, 5, 1]),
+     (4, 50, _W, [50, 1, 30, 50], [_W - 1, 0, 80, 2]),
+     (4, 50, _W + 1, [50, 1, 30, 50], [_W, 0, 80, 2]),
+     (2, 30, 1024, [30, 17], [1023, 500]), (1, 204, 129, [204], [128]),
+     (40, 104, 65, [104, 1, 80, 104, 50] * 8, [64, 0, 30, 1, 64] * 8)],
 )
 def test_lattice_kernels_match_plain(cuda, B, T, U1, t_lens, u_lens):
+    """Both lattices at the warp kernels' (U+1 <= WARP_MAX_U1) and the
+    block kernels' widths, one launch a call."""
+    from indic_cl_asr_torch.ops import _build
+
+    assert _build.load("rnnt_lattice").rnnt_lattice_warp_max_u1() == _W
     lb, ll, tl, ul = _lattice_inputs(B, T, U1, t_lens, u_lens, cuda)
     lpb, lpl, _, _ = R._prepare(lb, ll, tl, ul)
     a0, b0 = R.rnnt_alpha.launches, R.rnnt_beta.launches
@@ -329,6 +342,14 @@ def test_lattice_kernels_match_plain(cuda, B, T, U1, t_lens, u_lens):
     assert ((nll - nll_p).abs() <= 1e-5 * nll_p.abs()).all()
     for g, w in ((gx, gxp), (gy, gyp)):
         assert (g - w).abs().max().item() <= 1e-5 * w.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_lattice_exp_and_log1p_are_the_librarys(cuda):
+    """The lattice kernels' exp and log1p give expf's bits at every float
+    of [-inf, -0] and log1pf's at every float of [0, 1]: the arguments
+    -|a-b| and exp(-|a-b|) of a logaddexp."""
+    assert R.lae_mismatches(cuda) == 0
 
 
 def _tiny_step(device, batch_np, seed, rnnt_impl="xla"):
@@ -404,6 +425,35 @@ def test_tiny_train_step_on_the_card_matches_the_cpu(cuda):
     for name, t in sd_p.items():
         if name.endswith(("running_mean", "running_var")):
             assert (sd_c[name].cpu() - t).abs().max() <= 1e-5, name
+
+
+@pytest.mark.gpu
+def test_head_dim_256_flash_encoder_runs_eager_on_the_card(cuda):
+    """d_model 512 in 2 heads with attn_impl="flash": the route chosen at
+    construction is the eager attention (no flash launch), and the encoder
+    on the card matches the same encoder on the CPU, atol 1e-4 in f32
+    (tests/test_torch_model.py holds the CPU side to the JAX package)."""
+    import dataclasses
+
+    import numpy as np
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, d_model=512, n_heads=2, attn_impl="flash"))
+    models = {dev: init_weights_(HybridRNNTCTC(cfg, device=dev),
+                                 torch.Generator().manual_seed(5)) for dev in ("cpu", cuda)}
+    assert models[cuda].encoder.attention_route == "xla"
+    rng = np.random.default_rng(5)
+    feats = torch.from_numpy(rng.standard_normal((3, 32, 96)).astype(np.float32))
+    lens = torch.tensor([96, 61, 9], dtype=torch.int32)
+    n0 = flash_relpos_mhsa.launches
+    with torch.no_grad():
+        out_c, lens_c = models[cuda].encode(feats.to(cuda), lens.to(cuda))
+        torch.cuda.synchronize()
+        assert flash_relpos_mhsa.launches == n0
+        out_p, lens_p = models["cpu"].encode(feats, lens)
+    assert torch.equal(lens_c.cpu(), lens_p)
+    assert (out_c.cpu() - out_p).abs().max().item() <= 1e-4
 
 
 def _joint_inputs(B, T, U1, H, V1, dtype, dev, seed=0):

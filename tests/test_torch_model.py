@@ -6,6 +6,12 @@ Both encoder parameter layouts (scanned ``stack/layers`` and unrolled
 ``layers_i``) load, with random non-trivial BatchNorm statistics.
 Tolerance: atol 1e-4 on encoder outputs, projections, CTC log-probs and
 joint logits (f32 sums in another order; measured ~2e-6).
+
+``attention_route``: a flash config above head dim 128 runs the eager
+attention, resolved at construction; at d_model 512 in 2 heads (D 256)
+the port's encoder matches the JAX encoder, whose module takes its flash
+kernel there (the Pallas kernel in interpret mode on the CPU), to the same
+atol 1e-4.
 """
 
 import dataclasses
@@ -18,6 +24,7 @@ import torch
 
 from indic_cl_asr_tpu.models.hybrid import init_model
 from indic_cl_asr_tpu.models.hybrid import tiny_config as jax_tiny_config
+from indic_cl_asr_torch.models.conformer import attention_route
 from indic_cl_asr_torch.models.convert import from_jax_variables
 from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC, tiny_config
 
@@ -147,3 +154,49 @@ def test_eval_only_and_layout_errors():
     bad = {"params": {"encoder": {"pre_encode": {}}}}
     with pytest.raises(KeyError):
         from_jax_variables(port, bad)
+
+
+@pytest.mark.parametrize("d_model,n_heads,impl,route", [
+    (512, 8, "flash", "flash"), (512, 4, "flash", "flash"), (128, 1, "flash", "flash"),
+    (512, 2, "flash", "xla"), (256, 1, "flash", "xla"), (512, 2, "xla", "xla"),
+    (512, 8, "xla", "xla"),
+])
+def test_attention_route_follows_the_head_dim(d_model, n_heads, impl, route):
+    """D 64 and 128 keep the flash kernels; D 256 takes the eager path;
+    the route is a function of the config alone, shown by the encoder."""
+    enc = dataclasses.replace(tiny_config().encoder, d_model=d_model, n_heads=n_heads,
+                              attn_impl=impl)
+    assert attention_route(enc) == route
+    port = HybridRNNTCTC(dataclasses.replace(tiny_config(), encoder=enc), device="cpu")
+    assert port.encoder.attention_route == route
+    assert f"attention_route={route!r}" in repr(port.encoder)
+    assert {layer.self_attn.route for layer in port.encoder.layers} == {route}
+
+
+def test_head_dim_256_flash_encoder_matches_jax(monkeypatch):
+    """d_model 512 in 2 heads with attn_impl="flash": the JAX module runs
+    its flash kernel, the port its eager attention (the flash wrapper is
+    never called); atol 1e-4."""
+    import indic_cl_asr_torch.models.conformer as conformer
+
+    def no_flash(*a, **kw):
+        raise AssertionError("the D-256 encoder called the flash wrapper")
+
+    monkeypatch.setattr(conformer, "flash_relpos_mhsa", no_flash)
+    over = dict(d_model=512, n_heads=2)
+    jcfg = jax_tiny_config()
+    jcfg = dataclasses.replace(
+        jcfg, encoder=dataclasses.replace(jcfg.encoder, attn_impl="flash", **over))
+    model, variables = init_model(jcfg, jax.random.PRNGKey(5))
+    var_np = _with_random_stats(variables, np.random.default_rng(5))
+    pcfg = tiny_config()
+    pcfg = dataclasses.replace(
+        pcfg, encoder=dataclasses.replace(pcfg.encoder, attn_impl="flash", **over))
+    port = from_jax_variables(HybridRNNTCTC(pcfg, device="cpu"), var_np)
+    assert port.encoder.attention_route == "xla"
+    feats, lens = _feats(5, T=48)
+    f_j, l_j = model.apply(jax.tree.map(jnp.asarray, var_np), jnp.asarray(feats),
+                           jnp.asarray(lens), False, method="encode")
+    f_t, l_t = port.encode(torch.from_numpy(feats), torch.from_numpy(lens))
+    np.testing.assert_array_equal(np.asarray(l_j), l_t.numpy())
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), atol=ATOL)
