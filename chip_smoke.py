@@ -131,10 +131,35 @@ Phases, each of which fails the script when it fails:
    TF32 rate of the split passes it runs, each launch's share of one
    profiled call, and ptxas's registers and spills for each kernel.
 
+9. The command line: phase 8's WAVs written as manifests
+   ({lang}_{train,val,test,noisy_val,noisy_test}.jsonl, hindi and
+   bengali) and phase 8's tokenizer, padded to 256 pieces a language, as
+   ``tokenizer_dir``; the model ``scripts/_common.py`` builds from the
+   port's ``config.yaml`` with ``--n_langs 2`` (17 layers d512 in 8
+   heads, bf16, flash attention, layers 0-11 frozen, B16, ``rnnt_impl``
+   "xla") given phase 4's emitting weights and the BatchNorm statistics
+   of a training batch, saved with ``save_model``;
+   then ``cl_baseline.main`` from that ``--init_checkpoint`` with ``--lr
+   1e-6`` (two tasks of two steps, the evals; at 1e-4 two Adam steps
+   silence the random model, see ``run_cli``). Its counts are reset just before and read just
+   after: flash forward 17 x (steps + eval batches), flash backward 5 x
+   steps, alpha and beta = steps, decode = the RNNT eval batches (the
+   batches counted from the manifests' durations). The losses finite,
+   the frozen parameters bit-unchanged against the init checkpoint and
+   absent from ``model_<lang>.npz``, both tasks in ``sequence/``. Then
+   ``transcribe.main --run <run> --manifest <lang>_val.jsonl --wer`` for
+   each language, greedy RNNT and ``--decoder ctc``, each with its counts:
+   the printed WER equal to the WER the run logged last
+   (``val/perf_<lang>_{rnnt,ctc}_wer``, rounded to 4 decimals as printed),
+   the texts equal to the run's own last eval of that manifest, some
+   hypotheses non-empty; then ``results.main``: every report PDF
+   written and finite BWT values. Prints a ``cli: {...}`` line with the
+   wall seconds of each part and the launches.
+
 Prints the card's name and power limit (``nvidia-smi``) on a line of its
 own first, then the full record as one ``record {...}`` line, the
 ``{"kernels": [...]}`` line (each kernel's launches summed over the
-counted runs of phases 4, 6 and 8, the beam's over its own path), and as
+counted runs of phases 4, 6, 8 and 9, the beam's over its own path), and as
 its last line ``{"ok": true,
 "device": {...}}``; before them, the end-to-end numbers the fused joint
 moves (the flagship CL step's wall and device-busy ms, idle share and
@@ -2260,16 +2285,16 @@ def time_joint_kernels(captured, launches, rec):
     return lines
 
 
-def run_cl(dev, rec):
-    """Phase 8: the CL sequence for every method, then the step and joint
-    kernel timings. Returns the kernels' lines."""
+def run_cl(dev, rec, tasks, tok):
+    """Phase 8: the CL sequence for every method over ``make_cl_data``'s
+    tasks, then the step and joint kernel timings. Returns the kernels'
+    lines."""
     from indic_cl_asr_torch.data.pipeline import BucketSpec
 
     import shutil
 
     root = os.path.join(ROOT, "build", "chip_smoke", "cl")
     shutil.rmtree(os.path.join(root, "runs"), ignore_errors=True)  # the logs append
-    tasks, tok = make_cl_data(os.path.join(root, "wavs"))
     spec = BucketSpec(boundaries_sec=(4.0, 8.0), max_tokens=(64, 128))
     rec["cl"], total = {}, {}
     for name in CL_METHODS:
@@ -2280,6 +2305,263 @@ def run_cl(dev, rec):
     time_flash_eval_shapes(eval_flash_operands(dev, tasks, tok, spec), rec)
     captured = time_cl_step(dev, rec, tasks, tok, spec)
     return time_joint_kernels(captured, total, rec)
+
+
+# the command line's manifest splits and the TaskData fields phase 8 fills
+CLI_SPLITS = (("train", "train"), ("val", "val_clean"), ("noisy_val", "val_noisy"),
+              ("test", "test_clean"), ("noisy_test", "test_noisy"))
+REPORT_FAMILY = ("wer_line_plot.pdf", "wer_shaded_plot.pdf", "wer_error_bars_plot.pdf",
+                 "bwt_plot.pdf", "wer_box_plot.pdf")
+REPORT_PDFS = tuple(
+    [f"{d}_{k}.pdf" for d in ("rnnt", "ctc") for k in ("wer_vs_task", "bwt", "box")]
+    + [f"{d}/{f}" for d in ("rnnt_benchmark", "ctc_benchmark", "all_comparison_noisy")
+       for f in REPORT_FAMILY])
+
+
+def write_cli_inputs(tasks, tok, root):
+    """Phase 8's CL WAVs as the command line's manifests
+    ({lang}_{split}.jsonl) and phase 8's tokenizer, each language padded to
+    the flagship's 256 pieces as train_tokenizer.py pads, saved as
+    tokenizer_dir. Returns the two directories."""
+    from indic_cl_asr_torch.data.manifest import write_manifest
+    from indic_cl_asr_torch.data.tokenizer import CharTokenizer, MultilingualTokenizer
+
+    mdir, tok_dir = os.path.join(root, "manifests"), os.path.join(root, "tokenizer")
+    os.makedirs(mdir, exist_ok=True)
+    for lang, data in tasks.items():
+        for split, field in CLI_SPLITS:
+            write_manifest(os.path.join(mdir, f"{lang}_{split}.jsonl"), getattr(data, field))
+    MultilingualTokenizer({
+        lang: CharTokenizer(t.vocab + [f"<pad{i}>" for i in range(t.vocab_size, 256)])
+        for lang, t in tok.tokenizers_dict.items()}).save(tok_dir)
+    return mdir, tok_dir
+
+
+def eval_batches(entries, batch_size=16):
+    """The batches a Transcriber forms over ``entries``: per bucket of the
+    default BucketSpec (config.yaml's), ceil(entries / batch_size)."""
+    import collections
+
+    from indic_cl_asr_torch.data.pipeline import BucketSpec
+
+    spec = BucketSpec()
+    per_bucket = collections.Counter(spec.bucket_of(e.duration) for e in entries)
+    return sum(-(-n // batch_size) for n in per_bucket.values())
+
+
+def last_record(path, key):
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if key in r][-1][key]
+
+
+def quiet_main(main, argv):
+    """``main(argv)`` with its standard output captured (this script's own
+    output ends in the result lines); returns (result, output lines)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    return out, buf.getvalue().splitlines()
+
+
+def batch_norm_stats_(model, batch, frontend):
+    """Store in every BatchNorm the statistics of ``batch`` (the
+    BatchNorms in train mode with momentum 0, the rest of the model in
+    eval mode), as a trained model holds its data's: the training steps'
+    updates (momentum 0.9) then move them little, where from the initial
+    (0, 1) they would shift every layer's eval output."""
+    import torch
+
+    from indic_cl_asr_torch.audio.features import log_mel_spectrogram
+    from indic_cl_asr_torch.models.conformer import BatchNorm
+
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        mel, mel_lens = log_mel_spectrogram(torch.from_numpy(batch.audio).to(model.device),
+                                            torch.from_numpy(batch.audio_len).to(model.device),
+                                            frontend)
+        model.eval()
+        saved = [m.momentum for m in norms]
+        for m in norms:
+            m.train()
+            m.momentum = 0.0
+        model.encode(mel, mel_lens)
+        for m, momentum in zip(norms, saved):
+            m.eval()
+            m.momentum = momentum
+
+
+def run_cli(dev, rec, tasks, tok, overrides=()):
+    """Phase 9: the command line. Phase 8's WAVs as manifests, the model
+    config.yaml gives with --n_langs 2 (the flagship: 17 layers d512 in 8
+    heads, bf16, flash attention, layers 0-11 frozen, B16, rnnt_impl
+    "xla") with phase 4's emitting weights and its data's BatchNorm
+    statistics, saved by save_model; then ``cl_baseline.main`` from that
+    init checkpoint (two tasks of two steps), ``transcribe.main`` on the
+    run dir (greedy RNNT and CTC, each language's val manifest) and
+    ``results.main``. The run takes ``--lr 1e-6``: an Adam step moves every
+    trainable weight by about lr, all in step, and at config.yaml's 1e-4
+    two steps leave the random model silent (no RNNT hypothesis, and none
+    or one CTC hypothesis of 8 a language, in a run on the H100), which
+    would make the transcribe check empty. ``overrides`` are more config
+    flags (a narrowed rehearsal on the CPU). Returns the launch counts of
+    the counted runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from indic_cl_asr_torch.audio.features import FrontendConfig
+    from indic_cl_asr_torch.data.pipeline import BatchPipeline
+    from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC
+    from indic_cl_asr_torch.scripts import _common as C
+    from indic_cl_asr_torch.scripts import cl_baseline, results, transcribe
+    from indic_cl_asr_torch.train.eval import Transcriber
+    from indic_cl_asr_torch.train.state import trainable_names
+    from indic_cl_asr_torch.utils.checkpoint import save_model
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke", "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    mdir, tok_dir = write_cli_inputs(tasks, tok, root)
+    out = os.path.join(root, "runs")
+    argv = ["--n_langs", "2", "--dataset.manifest_dir", mdir, "--tokenizer_dir", tok_dir,
+            "--output_dir", out, "--use_wandb", "false", "--lr", "1e-6", "--device", dev.type,
+            *overrides]
+    wall, total = {}, {}
+
+    def count(part, t0):
+        torch.cuda.synchronize()
+        wall[part] = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in counted_wrappers().items()}
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return launches
+
+    t0 = time.perf_counter()
+    cfg, _ = C.setup(argv)
+    langs = C.build_languages(cfg)
+    data = C.build_data(cfg, langs)
+    tokenizer = C.build_tokenizer(cfg, langs, data)
+    model = HybridRNNTCTC(C.build_model_cfg(cfg, tokenizer, langs), device=dev)
+    serving_weights_(model, cfg.seed)
+    frontend = FrontendConfig(n_mels=cfg.model.n_mels)
+    for entries, fit in ((data[langs[0]].train, batch_norm_stats_),
+                         (data[langs[0]].val_clean, calibrate_blank_)):
+        fit(model, next(iter(BatchPipeline(entries, tokenizer, langs, cfg.batch_size))), frontend)
+    init = os.path.join(root, "init.pt")
+    save_model(init, model)
+    frozen = sorted(set(n for n, _ in model.named_parameters())
+                    - set(trainable_names(model, cfg.model.freeze_encoder_till)))
+    F, L = cfg.model.freeze_encoder_till, cfg.model.n_layers
+    del model
+    wall["init_s"] = time.perf_counter() - t0
+
+    # the run's own eval texts, the last of each (utterances, decoder), for
+    # transcribe's texts to be held against
+    evals, transcribe_entries = {}, Transcriber.transcribe
+
+    def recorded(self, entries, decoder="rnnt"):
+        hyps = transcribe_entries(self, entries, decoder)
+        evals[(tuple(e.audio_filepath for e in entries), decoder)] = hyps
+        return hyps
+
+    # --- the main path: counts reset just before, read just after ---
+    reset_training_counts()
+    t0 = time.perf_counter()
+    Transcriber.transcribe = recorded
+    try:
+        res = cl_baseline.main(argv + ["--init_checkpoint", init])
+    finally:
+        Transcriber.transcribe = transcribe_entries
+    launches = count("cl_baseline_s", t0)
+    (run_dir,) = [os.path.join(out, d) for d in os.listdir(out)]
+    steps = step_records(os.path.join(run_dir, "metrics.jsonl"))
+    # eval after task t: languages 0..t, val and test, clean and noisy
+    rnnt_batches = sum(eval_batches(getattr(data[l], field))
+                       for t in range(len(langs)) for l in langs[: t + 1]
+                       for field in ("val_clean", "val_noisy", "test_clean", "test_noisy"))
+    want = {"flash_relpos_mhsa": L * (len(steps) + 2 * rnnt_batches),
+            "flash_relpos_mhsa_backward": (L - F) * len(steps),
+            "rnnt_alpha": len(steps), "rnnt_beta": len(steps),
+            "joint_fused_forward": 0, "joint_fused_backward": 0,
+            "rnnt_greedy_decode_fused": rnnt_batches}
+    log(f"  cl_baseline: {wall['cl_baseline_s']:.2f} s, {len(steps)} steps, "
+        f"{rnnt_batches} RNNT + {rnnt_batches} CTC eval batches; launches {launches}")
+    if len(steps) != 4 or launches != want:
+        raise AssertionError(f"cli: {len(steps)} steps (want 4), launches {launches} != {want}")
+    losses = [r[k] for r in steps for k in r if k.startswith("train/train_loss_")]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"cli: a non-finite loss in {losses}")
+    seq = os.path.join(run_dir, "sequence")
+    with open(os.path.join(seq, "sequence.json")) as f:
+        done = json.load(f)["completed_tasks"]
+    files = [f"sequence/task_{i}_{l}.pt" for i, l in enumerate(langs)] + [
+        f"model_{l}.npz" for l in langs]
+    missing = [f for f in files if not os.path.exists(os.path.join(run_dir, f))]
+    if done != langs or missing:
+        raise AssertionError(f"cli: completed tasks {done}, not written: {missing}")
+    before = torch.load(init, weights_only=True, mmap=True)["model"]
+    after = torch.load(os.path.join(run_dir, files[len(langs) - 1]), weights_only=True,
+                       mmap=True)["model"]
+    moved = [n for n in frozen if not torch.equal(before[n], after[n])]
+    trained = [n for n in after if n in before and n not in frozen
+               and not n.endswith(("running_mean", "running_var"))
+               and not torch.equal(before[n], after[n])]
+    with np.load(os.path.join(run_dir, f"model_{langs[0]}.npz")) as saved:
+        saved_frozen = [n for n in saved.files if n in frozen]
+    if moved or saved_frozen or not frozen or not trained:
+        raise AssertionError(f"cli: frozen parameters changed {moved[:4]} or saved "
+                             f"{saved_frozen[:4]} ({len(frozen)} frozen, {len(trained)} "
+                             "trained parameters changed)")
+    val = {l: {d: res["val"][l][-1][f"{d}_wer"] for d in ("rnnt", "ctc")} for l in langs}
+    log(f"  cl_baseline: losses {losses}; last val WERs {val}; {len(frozen)} frozen "
+        f"parameters bit-unchanged against the init checkpoint, {len(trained)} trained ones "
+        "changed")
+
+    # transcribe on the run dir reproduces the WERs the run logged last
+    metrics, wers = os.path.join(run_dir, "metrics.jsonl"), {}
+    for lang in langs:
+        manifest = os.path.join(mdir, f"{lang}_val.jsonl")
+        batches = eval_batches(data[lang].val_clean)
+        for dec in ("rnnt", "ctc"):
+            reset_training_counts()
+            t0 = time.perf_counter()
+            hyps, lines = quiet_main(transcribe.main, ["--run", run_dir, "--manifest", manifest,
+                                                       "--wer", "--decoder", dec,
+                                                       "--device", dev.type])
+            launches = count(f"transcribe_{lang}_{dec}_s", t0)
+            got = json.loads(lines[-1])["wer"]
+            logged = last_record(metrics, f"val/perf_{lang}_{dec}_wer")
+            want_tr = {"flash_relpos_mhsa": L * batches,
+                       "rnnt_greedy_decode_fused": batches if dec == "rnnt" else 0}
+            run_hyps = evals[(tuple(e.audio_filepath for e in data[lang].val_clean), dec)]
+            wers[f"{lang}_{dec}"] = {"transcribe": got, "logged": logged,
+                                     "non_empty": sum(bool(h.strip()) for h in hyps),
+                                     "texts_as_run": hyps == run_hyps,
+                                     "launches_as_work": {k: launches[k] for k in want_tr}
+                                     == want_tr}
+    log(f"  transcribe: {wers}")
+    if not all(w["transcribe"] == round(w["logged"], 4) and w["non_empty"]
+               and w["texts_as_run"] and w["launches_as_work"] for w in wers.values()):
+        raise AssertionError(f"cli: transcribe's WERs against the logged ones, non-empty "
+                             f"hypotheses, texts and launches: {wers}")
+
+    t0 = time.perf_counter()
+    summaries, _ = quiet_main(results.main, [run_dir, "--out", os.path.join(root, "report")])
+    wall["results_s"] = time.perf_counter() - t0
+    wall["phase_s"] = time.perf_counter() - t_phase
+    missing = [p for p in REPORT_PDFS if not os.path.exists(os.path.join(root, "report", p))]
+    bwt = {d: v["bwt"] for s in summaries.values() for d, v in s.items()}
+    if missing or not all(math.isfinite(b) for v in bwt.values() for b in v):
+        raise AssertionError(f"cli: report PDFs missing {missing}, BWT {bwt}")
+    rec["cli"] = {"wall_s": wall, "launches": total, "steps": len(steps),
+                  "rnnt_eval_batches": rnnt_batches, "losses": losses, "wer": wers,
+                  "bwt": bwt, "report_pdfs": len(REPORT_PDFS)}
+    print("cli: " + json.dumps({"wall_s": wall, "launches": total}), flush=True)
+    return total
 
 
 def main() -> int:
@@ -2306,13 +2588,13 @@ def main() -> int:
     card = nvidia_smi()
     rec = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     print(card, flush=True)
-    log(f"[1/8] device: {torch.cuda.get_device_name(0)} | "
+    log(f"[1/9] device: {torch.cuda.get_device_name(0)} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     secs = _build.build()
     rec["build_s"] = time.perf_counter() - t0
-    log(f"[2/8] build: {rec['build_s']:.1f} s {secs}")
+    log(f"[2/9] build: {rec['build_s']:.1f} s {secs}")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2332,7 +2614,7 @@ def main() -> int:
         f"{rec['flash_backward_build']['dynamic_shared_bytes']}; the scalar kernel (f32, "
         f"and bf16 at D128): ptxas {rec['flash_backward_build']['scalar_ptxas']}")
 
-    log("[3/8] kernels vs plain versions on the card")
+    log("[3/9] kernels vs plain versions on the card")
     check_flash(dev, rec)
     check_decode(dev, rec)
     check_beam(dev, rec)
@@ -2341,34 +2623,40 @@ def main() -> int:
     check_head_dim_route(dev, rec)
     check_joint(dev, rec)
 
-    log("[4/8] serving slice (flagship width, seeded random weights)")
+    log("[4/9] serving slice (flagship width, seeded random weights)")
     inputs, launches, decode_work, data = run_slice(dev, rec)
 
-    log("[5/8] timing at the serving path's shapes")
+    log("[5/9] timing at the serving path's shapes")
     kernels = time_kernels(inputs, launches, decode_work, rec)
     del inputs
     torch.cuda.empty_cache()
 
-    log("[6/8] training slice (flagship width, bf16, layers 0-11 frozen)")
+    log("[6/9] training slice (flagship width, bf16, layers 0-11 frozen)")
     train_launches, captured, host_batch = run_training(dev, rec, *data)
     kernels += time_training_kernels(captured, train_launches, rec)
     del captured
     torch.cuda.empty_cache()
 
-    log("[7/8] f32 step equality, card kernels vs CPU plain versions")
+    log("[7/9] f32 step equality, card kernels vs CPU plain versions")
     for impl in ("xla", "pallas"):
         check_step_f32(dev, rec, host_batch, rnnt_impl=impl)
 
-    log("[8/8] CL sequence (flagship width, rnnt_impl='pallas'; naive, EWC, MAS, LwF)")
-    kernels += run_cl(dev, rec)
+    log("[8/9] CL sequence (flagship width, rnnt_impl='pallas'; naive, EWC, MAS, LwF)")
+    tasks, tok = make_cl_data(os.path.join(ROOT, "build", "chip_smoke", "cl", "wavs"))
+    kernels += run_cl(dev, rec, tasks, tok)
+
+    log("[9/9] the command line (config.yaml's flagship, --n_langs 2): cl_baseline, "
+        "transcribe, results")
+    rec["cli_launches"] = run_cli(dev, rec, tasks, tok)
     order = ["flash_relpos_mhsa", "flash_relpos_mhsa_backward", "rnnt_alpha",
              "rnnt_beta", "joint_fused_forward", "joint_fused_backward",
              "rnnt_greedy_decode_fused", "rnnt_beam_search_fused"]
     kernels.sort(key=lambda k: order.index(k["name"]))
     # each kernel's launches over the main path's counted runs: the serving
     # slice (phase 4; the beam's from its own path), the training steps
-    # (phase 6) and the CL sequence (phase 8)
-    phases = {"serving": launches, "training": train_launches, "cl": rec["cl_launches"]}
+    # (phase 6), the CL sequence (phase 8) and the command line (phase 9)
+    phases = {"serving": launches, "training": train_launches, "cl": rec["cl_launches"],
+              "cli": rec["cli_launches"]}
     rec["main_path_launches"] = {}
     for line in kernels:
         by = {ph: c.get(line["name"], 0) for ph, c in phases.items()}

@@ -2,12 +2,16 @@
 
 ``from_jax_variables(model, variables)`` takes the JAX ``variables``
 (``params`` + ``batch_stats``) as a nested dict of numpy arrays and loads
-every parameter and BatchNorm statistic of the port's HybridRNNTCTC:
+every parameter and BatchNorm statistic of the port's HybridRNNTCTC.
+Every leaf maps on its own (``port_leaf``), so the same mapping serves a
+whole tree and a partial save of named leaves
+(``utils/checkpoint.py:load_partial``):
 
   * Dense kernels [in, out] become Linear weights [out, in];
   * the subsampling Conv kernels HWIO [3, 3, in, out] become OIHW;
   * the depthwise Conv kernel [k, 1, C] becomes Conv1d [C, 1, k];
-  * LayerNorm / BatchNorm ``scale`` becomes ``weight``;
+  * LayerNorm / BatchNorm ``scale`` becomes ``weight``, the BatchNorm
+    statistics ``mean`` / ``var`` become ``running_mean`` / ``running_var``;
   * the encoder layers load from either layout: the scanned stack
     (``encoder/stack/layers/<leaf>[L, ...]``, the flagship's) split per
     layer, or the unrolled ``encoder/layers_<i>``;
@@ -21,94 +25,78 @@ are mapped where ``batch_stats`` is given.
 
 from __future__ import annotations
 
+import re
+from collections.abc import Mapping
+
 import numpy as np
 import torch
 
-
-def _dense(sd, prefix, tree):
-    sd[f"{prefix}.weight"] = np.asarray(tree["kernel"]).T
-    if "bias" in tree:
-        sd[f"{prefix}.bias"] = np.asarray(tree["bias"])
-
-
-def _norm(sd, prefix, tree):
-    sd[f"{prefix}.weight"] = np.asarray(tree["scale"])
-    sd[f"{prefix}.bias"] = np.asarray(tree["bias"])
+_STACK = re.compile(r"^(.*encoder)/stack/layers/(.*)$")
+_RENAMES = ((re.compile(r"^layers_(\d+)$"), r"layers.\1"),
+            (re.compile(r"^conv_(\d+)$"), r"convs.\1"),
+            (re.compile(r"^lstm_(\d+)$"), r"lstm.\1"))
+# kernel layouts by rank: Dense [in, out], depthwise [k, 1, C], Conv2d HWIO
+_KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+_LEAVES = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
-def _layer(sd, prefix, p, bs):
-    for name in ("norm_feed_forward1", "norm_self_att", "norm_conv",
-                 "norm_feed_forward2", "norm_out"):
-        _norm(sd, f"{prefix}.{name}", p[name])
-    for ff in ("feed_forward1", "feed_forward2"):
-        for lin in ("linear1", "linear2"):
-            _dense(sd, f"{prefix}.{ff}.{lin}", p[ff][lin])
-    att = p["self_attn"]
-    for lin in ("linear_q", "linear_k", "linear_v", "linear_pos", "linear_out"):
-        _dense(sd, f"{prefix}.self_attn.{lin}", att[lin])
-    sd[f"{prefix}.self_attn.pos_bias_u"] = np.asarray(att["pos_bias_u"])
-    sd[f"{prefix}.self_attn.pos_bias_v"] = np.asarray(att["pos_bias_v"])
-    conv = p["conv"]
-    _dense(sd, f"{prefix}.conv.pointwise_conv1", conv["pointwise_conv1"])
-    _dense(sd, f"{prefix}.conv.pointwise_conv2", conv["pointwise_conv2"])
-    dw = conv["depthwise_conv"]
-    sd[f"{prefix}.conv.depthwise_conv.weight"] = np.transpose(
-        np.asarray(dw["kernel"]), (2, 1, 0)
-    )
-    sd[f"{prefix}.conv.depthwise_conv.bias"] = np.asarray(dw["bias"])
-    _norm(sd, f"{prefix}.conv.batch_norm", conv["batch_norm"])
-    if bs is None:
-        return
-    stats = bs["conv"]["batch_norm"]
-    sd[f"{prefix}.conv.batch_norm.running_mean"] = np.asarray(stats["mean"])
-    sd[f"{prefix}.conv.batch_norm.running_var"] = np.asarray(stats["var"])
+def _rename(part: str) -> str:
+    for pattern, repl in _RENAMES:
+        part = pattern.sub(repl, part)
+    return part
 
 
-def _slice(tree, i):
-    return {k: _slice(v, i) if isinstance(v, dict) else np.asarray(v)[i]
-            for k, v in tree.items()}
+def port_leaf(path: str, arr) -> tuple[str, np.ndarray]:
+    """One JAX leaf, by its '/'-joined path below ``params`` or
+    ``batch_stats`` (unrolled layout), -> (port state-dict name, array in
+    the port's layout)."""
+    *mods, leaf = path.split("/")
+    mod = ".".join(_rename(part) for part in mods)
+    arr = np.asarray(arr)
+    if leaf == "kernel" and mod != "ctc_decoder":
+        arr, leaf = np.transpose(arr, _KERNEL_AXES[arr.ndim]), "weight"
+    return f"{mod}.{_LEAVES.get(leaf, leaf)}", arr
+
+
+def named_state_dict(named: dict) -> dict[str, np.ndarray]:
+    """{JAX path: array} -> {port name: array}. A path may carry its
+    collection (``params/...``, ``batch_stats/...``) or be relative to
+    ``params`` (a partial save's names); a scanned-stack leaf gives one
+    entry per row it holds."""
+    sd: dict[str, np.ndarray] = {}
+    for path, arr in named.items():
+        path = re.sub(r"^(params|batch_stats)/", "", path)
+        m = _STACK.match(path)
+        if m is None:
+            name, value = port_leaf(path, arr)
+            sd[name] = value
+            continue
+        for i, row in enumerate(np.asarray(arr)):
+            name, value = port_leaf(f"{m.group(1)}/layers_{i}/{m.group(2)}", row)
+            sd[name] = value
+    return sd
+
+
+def _named(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(_named(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
 
 
 def jax_state_dict(variables: dict, n_layers: int) -> dict[str, np.ndarray]:
     """Flax variables -> the port's state-dict names and layouts (numpy);
-    the BatchNorm statistics only when ``variables`` has ``batch_stats``."""
-    params = variables["params"]
-    enc = params["encoder"]
-    enc_bs = variables["batch_stats"]["encoder"] if "batch_stats" in variables else None
-    sd: dict[str, np.ndarray] = {}
-    pre = enc["pre_encode"]
-    i = 0
-    while f"conv_{i}" in pre:
-        conv = pre[f"conv_{i}"]
-        sd[f"encoder.pre_encode.convs.{i}.weight"] = np.transpose(
-            np.asarray(conv["kernel"]), (3, 2, 0, 1)
-        )
-        sd[f"encoder.pre_encode.convs.{i}.bias"] = np.asarray(conv["bias"])
-        i += 1
-    _dense(sd, "encoder.pre_encode.out", pre["out"])
-    for li in range(n_layers):
-        if "stack" in enc:
-            p = _slice(enc["stack"]["layers"], li)
-            bs = _slice(enc_bs["stack"]["layers"], li) if enc_bs is not None else None
-        else:
-            p = enc[f"layers_{li}"]
-            bs = enc_bs[f"layers_{li}"] if enc_bs is not None else None
-        _layer(sd, f"encoder.layers.{li}", p, bs)
-    pred = params["prediction"]
-    sd["prediction.embedding"] = np.asarray(pred["embedding"])
-    li = 0
-    while f"lstm_{li}" in pred:
-        for leaf in ("w_ih", "w_hh", "bias"):
-            sd[f"prediction.lstm.{li}.{leaf}"] = np.asarray(pred[f"lstm_{li}"][leaf])
-        li += 1
-    joint = params["joint"]
-    _dense(sd, "joint.enc", joint["enc"])
-    _dense(sd, "joint.pred", joint["pred"])
-    sd["joint.head_kernel"] = np.asarray(joint["head_kernel"])
-    sd["joint.head_bias"] = np.asarray(joint["head_bias"])
-    ctc = params["ctc_decoder"]
-    sd["ctc_decoder.kernel"] = np.asarray(ctc["kernel"])
-    sd["ctc_decoder.bias"] = np.asarray(ctc["bias"])
+    the BatchNorm statistics only when ``variables`` has ``batch_stats``.
+    A scanned stack must hold ``n_layers`` rows."""
+    sd = named_state_dict({f"{c}/{k}": v for c in ("params", "batch_stats")
+                           if c in variables for k, v in _named(variables[c]).items()})
+    extra = [n for n in sd if n.startswith("encoder.layers.")
+             and int(n.split(".")[2]) >= n_layers]
+    if extra:
+        raise ValueError(f"variables hold more than {n_layers} encoder layers: {extra[:3]}")
     return sd
 
 

@@ -1,18 +1,23 @@
-"""Partial weight saves and the task-sequence checkpoint (PyTorch).
+"""Weight saves and the task-sequence checkpoint (PyTorch).
 
-Port of the same-layout part of indic_cl_asr_tpu/utils/checkpoint.py:
+Port of indic_cl_asr_tpu/utils/checkpoint.py:
 
   * ``save_partial``: the trainable parameters only, as an ``.npz`` of
     {port parameter name: array} (the reference's ``model_<lang>.pth``
     partial state dicts, utils.py:265-271);
+  * ``load_partial``: the non-strict restore of a partial ``.npz``
+    (cl_baseline_lwf.py:223), the port's own or the JAX package's
+    ``model_<lang>.npz`` in either encoder layout;
+  * ``save_model`` / ``load_model``: the whole model for
+    ``init_checkpoint``, the port's counterpart of the JAX package's orbax
+    tree of the variables;
   * ``SequenceCheckpointer``: per completed task, the model's state dict
     (parameters and BatchNorm statistics), the optimizer's ``mu``/``nu``/
     ``count`` and the CL method's state, with ``torch.save``, plus a
     ``sequence.json`` manifest of the completed tasks and the val WER
     records, so a crashed language sequence resumes where it stopped.
 
-Cross-layout conversion, ``load_partial``, orbax trees and ``.nemo``
-files are not ported here.
+Orbax trees and ``.nemo`` files are not read.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..models.convert import named_state_dict
+
 
 def save_partial(path: str, model: torch.nn.Module, names) -> None:
     """Save the parameters named in ``names`` (the trainable ones) as f32
@@ -32,6 +39,57 @@ def save_partial(path: str, model: torch.nn.Module, names) -> None:
     arrays = {n: p.detach().float().cpu().numpy() for n, p in model.named_parameters()
               if n in keep}
     np.savez(path, **arrays)
+
+
+@torch.no_grad()
+def load_partial(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Non-strict restore of an ``.npz`` of named arrays into ``model`` in
+    place: the port's ``save_partial`` files (port state-dict names), or
+    the JAX package's named leaves ('/'-joined paths: its
+    ``model_<lang>.npz`` partial saves, or a whole tree with ``params/``
+    and ``batch_stats/`` prefixes), in either encoder layout
+    (``encoder/layers_<i>/...`` or the ``[L, ...]`` rows of
+    ``encoder/stack/layers/...``), mapped through models/convert.py.
+    Entries and layers the file lacks keep the model's values; a name that
+    matches nothing in the model raises."""
+    with np.load(path) as data:
+        named = {k: data[k] for k in data.files}
+    n_jax = sum("/" in k for k in named)
+    if n_jax not in (0, len(named)):
+        raise ValueError(f"{path} mixes JAX paths and port names")
+    sd = named_state_dict(named) if n_jax else named
+    own = model.state_dict()
+    unknown = sorted(set(sd) - set(own))
+    if unknown:
+        raise KeyError(f"{path}: no such entry in the model: {unknown}")
+    for name, arr in sd.items():
+        if tuple(arr.shape) != tuple(own[name].shape):
+            raise ValueError(f"{name}: {tuple(arr.shape)} != {tuple(own[name].shape)}")
+        own[name].copy_(torch.from_numpy(np.asarray(arr, dtype=np.float32)))
+    return model
+
+
+def save_model(path: str, model: torch.nn.Module) -> None:
+    """The whole model (parameters and BatchNorm statistics) as a ``.pt``,
+    in the layout ``SequenceCheckpointer.save_task`` writes its
+    ``"model"`` entry."""
+    torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}, path)
+
+
+@torch.no_grad()
+def load_model(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """``init_checkpoint``: load a ``save_model`` file or a task checkpoint
+    (``sequence/task_<i>_<lang>.pt``) strictly, or an ``.npz`` of named
+    arrays through ``load_partial``. An orbax tree (a directory) is not
+    read: save the JAX variables' named leaves as an ``.npz`` instead."""
+    if os.path.isdir(path):
+        raise ValueError(f"{path} is a directory (an orbax tree?): the port reads a "
+                         ".pt written by save_model or an .npz of named arrays")
+    if path.endswith(".npz"):
+        return load_partial(path, model)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(state["model"])
+    return model
 
 
 class SequenceCheckpointer:

@@ -862,3 +862,68 @@ def test_beam_kernel_counts_each_call_and_row_once(cuda, B, dtype):
         rows = bfm.work_counts()
     assert bfm.rnnt_beam_search_fused.launches == B
     assert batch == rows and batch["rounds"] > 0 and int(n.sum()) > 0
+
+
+def _eval_batches(entries, spec, batch_size):
+    import collections
+
+    per_bucket = collections.Counter(spec.bucket_of(e.duration) for e in entries)
+    return sum(-(-n // batch_size) for n in per_bucket.values())
+
+
+@pytest.mark.gpu
+def test_cl_command_line_on_the_card_launches_the_kernels(cuda, tmp_path):
+    """``cl_baseline.main`` at tiny width on the card (bf16, flash attention,
+    layer 0 of 2 frozen, one step a task), then ``transcribe.main`` on its
+    run dir: each kernel launches as often as the work says."""
+    import json
+    import os
+
+    from indic_cl_asr_torch.data.pipeline import BucketSpec
+    from indic_cl_asr_torch.ops import decode_fused as dfm
+    from indic_cl_asr_torch.ops import flash_mhsa as fm
+    from indic_cl_asr_torch.scripts import _common as C
+    from indic_cl_asr_torch.scripts import cl_baseline, transcribe
+
+    argv = ["--synthetic", "true", "--n_langs", "2", "--batch_size", "4",
+            "--synthetic_utts", "4", "--use_wandb", "false", "--model.n_layers", "2",
+            "--model.d_model", "64", "--model.n_heads", "4", "--model.n_mels", "32",
+            "--model.pred_hidden", "32", "--model.joint_hidden", "32",
+            "--model.freeze_encoder_till", "1", "--rnnt_chunk_size", "8",
+            "--buckets.boundaries_sec", "2.0", "--buckets.max_tokens", "64",
+            "--output_dir", str(tmp_path), "--device", "cuda"]
+    wrappers = (fm.flash_relpos_mhsa, fm.flash_relpos_mhsa_backward, R.rnnt_alpha,
+                R.rnnt_beta, dfm.rnnt_greedy_decode_fused)
+
+    def counts():
+        torch.cuda.synchronize()
+        return [w.launches for w in wrappers]
+
+    n0 = counts()
+    cl_baseline.main(argv)
+    got = [b - a for a, b in zip(n0, counts())]
+    cfg, _ = C.setup(argv)
+    data = C.build_data(cfg, C.build_languages(cfg))
+    spec = BucketSpec(boundaries_sec=(2.0,), max_tokens=(64,))
+    langs = list(data)
+    rnnt = sum(_eval_batches(getattr(data[l], f), spec, 4) for t in range(2)
+               for l in langs[: t + 1] for f in ("val_clean", "val_noisy", "test_clean",
+                                                 "test_noisy"))
+    steps = 2  # four training utterances a language, batch 4
+    assert got == [2 * (steps + 2 * rnnt), 1 * steps, steps, steps, rnnt]
+
+    (run,) = [os.path.join(tmp_path, d) for d in os.listdir(tmp_path)
+              if os.path.exists(os.path.join(tmp_path, d, "config.json"))]
+    manifest = os.path.join(tmp_path, "hindi_val.jsonl")
+    with open(manifest, "w") as f:
+        for e in data["hindi"].val_clean:
+            f.write(e.to_json() + "\n")
+    n0 = counts()
+    hyps = transcribe.main(["--run", run, "--manifest", manifest, "--batch_size", "4",
+                            "--device", "cuda"])
+    got = [b - a for a, b in zip(n0, counts())]
+    batches = _eval_batches(data["hindi"].val_clean, BucketSpec(), 4)
+    assert len(hyps) == len(data["hindi"].val_clean)
+    assert got == [2 * batches, 0, 0, 0, batches]
+    with open(os.path.join(run, "sequence", "sequence.json")) as f:
+        assert json.load(f)["completed_tasks"] == langs
