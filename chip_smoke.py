@@ -155,11 +155,33 @@ Phases, each of which fails the script when it fails:
    hypotheses non-empty; then ``results.main``: every report PDF
    written and finite BWT values. Prints a ``cli: {...}`` line with the
    wall seconds of each part and the launches.
+10. The pretrained path: phase 4's flagship (17 layers d512 in 8 heads,
+   12 heads of 257 classes, its emitting weights) in f32, with the
+   BatchNorm statistics of one of its data's batches and the blank biases
+   calibrated after them, written as ``flagship.nemo`` (NeMo's
+   model_config.yaml, the state dict under NeMo's names, twelve
+   SentencePiece models of 256 pieces; ``write_nemo``, the inverse of
+   models/pretrained.py's conversion); ``restore_pretrained`` on the card:
+   every tensor bit-equal to the source's, the mapped config equal to the
+   source's; ``transcribe.main --nemo`` with the RNNT and CTC decoders on
+   phase 4's 32 WAVs as a manifest under the checkpoint's key "hi": texts
+   equal to a ``Transcriber`` over the source model with the restored
+   tokenizer, some non-empty; ``eval_pretrained.main`` on the same WAVs
+   as the "hindi" test split with ``--n_langs 1 --local_tokenizer`` (the
+   config's language names are not the checkpoint tokenizer's keys, as in
+   the JAX package): records equal to the WER of a ``Transcriber`` over
+   the source with that tokenizer. Each main's launches are reset just
+   before and read just after: flash forward 17 x the encoded batches,
+   greedy decode one per RNNT batch, every other kernel none. Prints the
+   restore's seconds (config, read, convert, load, tokenizer), each
+   main's seconds and the f32 flash forward's and greedy decode's ms a
+   launch at the long bucket's batch (CUDA events; ``f32_ms`` in their
+   kernel lines).
 
 Prints the card's name and power limit (``nvidia-smi``) on a line of its
 own first, then the full record as one ``record {...}`` line, the
 ``{"kernels": [...]}`` line (each kernel's launches summed over the
-counted runs of phases 4, 6, 8 and 9, the beam's over its own path), and as
+counted runs of phases 4, 6, 8, 9 and 10, the beam's over its own path), and as
 its last line ``{"ok": true,
 "device": {...}}``; before them, the end-to-end numbers the fused joint
 moves (the flagship CL step's wall and device-busy ms, idle share and
@@ -298,9 +320,9 @@ def flash_bwd_timings(args, **kw):
             "device_ms": device_ms(call, "flash_relpos_bwd")}
 
 
-def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+def bound_ms(nbytes: int, flops: int, peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -388,11 +410,13 @@ def decode_blank_bias(model, f_proj, lens, lang, q):
     over all frames at once, without the blank's current bias)."""
     import torch
 
+    from indic_cl_asr_torch.models.common import activate
+
     blank = model.cfg.blank_local
     B, T, _ = f_proj.shape
     with torch.inference_mode():
         g, _ = model.pred_step(torch.full((B,), blank, device=f_proj.device), None)
-        x = torch.relu(f_proj + g[:, None]).float()
+        x = activate(f_proj + g[:, None], model.cfg.joint_activation).float()
         lang = lang.long()
         logits = torch.einsum("bth,bhv->btv", x, model.joint.head_kernel[lang].float())
         logits = logits + model.joint.head_bias[lang].float()[:, None]
@@ -2564,6 +2588,350 @@ def run_cli(dev, rec, tasks, tok, overrides=()):
     return total
 
 
+# the pretrained path (phase 10): a .nemo written from a port model
+
+def spm_model_bytes(pieces) -> bytes:
+    """A SentencePiece ModelProto (unigram) of ``pieces`` [(piece, score,
+    type)]: the pieces, a trainer spec and a normalizer spec, as
+    tests/test_spm_model.py:make_model_bytes writes them."""
+    import struct
+
+    def varint(n):
+        out = b""
+        while True:
+            b = n & 0x7F
+            n >>= 7
+            if n:
+                out += bytes([b | 0x80])
+            else:
+                return out + bytes([b])
+
+    def field_bytes(num, data):
+        return varint(num << 3 | 2) + varint(len(data)) + data
+
+    def field_varint(num, val):
+        return varint(num << 3) + varint(val)
+
+    blob = b""
+    for piece, score, ptype in pieces:
+        blob += field_bytes(1, field_bytes(1, piece.encode("utf-8"))
+                            + varint(2 << 3 | 5) + struct.pack("<f", score)
+                            + field_varint(3, ptype))
+    trainer = field_varint(3, 1) + field_varint(35, 0) + field_varint(40, 0)
+    norm = field_bytes(1, b"nmt_nfkc") + field_varint(3, 1) + field_varint(4, 1)
+    return blob + field_bytes(2, trainer) + field_bytes(3, norm)
+
+
+def spm_pieces(n=256):
+    """``n`` pieces: <unk>, <s>, </s> and single letters, "▁"-prefixed
+    letters and letter pairs (the flagship's 256 a language)."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    normal = (list(letters) + ["\u2581" + c for c in letters]
+              + [a + b for a in letters for b in letters])[: n - 3]
+    return ([("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+            + [(p, -1.0 - 0.01 * i, 1) for i, p in enumerate(normal)])
+
+
+def nemo_state_dict(model) -> dict:
+    """The port model's f32 parameters and BatchNorm statistics under
+    NeMo's names and layouts, on the CPU: the inverse of
+    models/pretrained.py:convert_nemo_state_dict (heads in LANGUAGE_KEYS'
+    order; the LSTM bias whole in bias_ih, bias_hh zero)."""
+    import torch
+
+    from indic_cl_asr_torch.models.pretrained import LANGUAGE_KEYS
+
+    cfg = model.cfg
+    out = {}
+    for name, t in model.state_dict().items():
+        t = t.detach().float().cpu()
+        parts = name.split(".")
+        if name.startswith("encoder.pre_encode.convs."):
+            out[f"encoder.pre_encode.conv.{2 * int(parts[3])}.{parts[4]}"] = t
+        elif name == "encoder.pre_encode.out.weight":
+            C, d = cfg.encoder.conv_channels, cfg.encoder.d_model
+            out[name] = t.reshape(d, -1, C).transpose(1, 2).reshape(d, -1)  # (C, F) order
+        elif ".conv.pointwise_conv" in name and name.endswith("weight"):
+            out[name] = t[:, :, None]  # Conv1d k=1
+        elif name == "prediction.embedding":
+            out["decoder.prediction.embed.weight"] = t
+        elif name.startswith("prediction.lstm."):
+            k, leaf = parts[2], parts[3]
+            lp = "decoder.prediction.dec_rnn.lstm."
+            if leaf == "bias":
+                out[f"{lp}bias_ih_l{k}"] = t
+                out[f"{lp}bias_hh_l{k}"] = torch.zeros_like(t)
+            else:
+                out[f"{lp}weight_{leaf[2:]}_l{k}"] = t.t()
+        elif name in ("joint.head_kernel", "joint.head_bias"):
+            for i, lang in enumerate(LANGUAGE_KEYS[: cfg.n_langs]):
+                leaf = "weight" if name.endswith("kernel") else "bias"
+                out[f"joint.joint_net.2.{lang}.{leaf}"] = t[i].t() if leaf == "weight" else t[i]
+        elif name == "ctc_decoder.kernel":
+            out["ctc_decoder.decoder_layers.0.weight"] = t.t()[:, :, None]
+        elif name == "ctc_decoder.bias":
+            out["ctc_decoder.decoder_layers.0.bias"] = t
+        else:
+            out[name] = t
+    return {k: v.contiguous().clone() for k, v in out.items()}
+
+
+def nemo_config(cfg) -> dict:
+    """model_config.yaml's dict in NeMo's shape (the fields
+    model_config_from_nemo maps), its languages LANGUAGE_KEYS' first
+    n_langs, each with a ``nemo:`` tokenizer artifact."""
+    from indic_cl_asr_torch.models.pretrained import LANGUAGE_KEYS
+
+    e = cfg.encoder
+    return {
+        "encoder": {
+            "feat_in": e.feat_in, "n_layers": e.n_layers, "d_model": e.d_model,
+            "n_heads": e.n_heads, "ff_expansion_factor": e.ff_expansion_factor,
+            "conv_kernel_size": e.conv_kernel_size, "conv_norm_type": e.conv_norm_type,
+            "subsampling_factor": e.subsampling_factor,
+            "subsampling_conv_channels": e.subsampling_conv_channels,
+            "dropout": e.dropout, "dropout_pre_encoder": e.dropout_pre_encoder,
+            "dropout_emb": e.dropout_emb, "dropout_att": e.dropout_att, "xscale": e.xscale,
+            "pos_emb_max_len": e.pos_emb_max_len},
+        "decoder": {"prednet": {"pred_hidden": cfg.pred_hidden,
+                                "pred_rnn_layers": cfg.pred_rnn_layers}},
+        "joint": {"num_classes": -1, "jointnet": {"joint_hidden": cfg.joint_hidden,
+                                                  "activation": cfg.joint_activation}},
+        "aux_ctc": {"decoder": {"num_classes": cfg.vocab_size_total}},
+        "tokenizer": {"type": "multilingual", "langs": {
+            lang: {"type": "bpe", "model_path": f"nemo:{i:02d}c0ffee_tokenizer.model"}
+            for i, lang in enumerate(LANGUAGE_KEYS[: cfg.n_langs])}},
+    }
+
+
+def write_nemo_tar(path, config: dict, state_dict: dict, members: dict) -> str:
+    """A .nemo tar at ``path``: ``config`` as model_config.yaml, the torch
+    ``state_dict`` as model_weights.ckpt and ``members`` ({name: bytes},
+    the tokenizer artifacts)."""
+    import io
+    import tarfile
+
+    import torch
+    import yaml
+
+    ckpt = io.BytesIO()
+    torch.save(state_dict, ckpt)
+    files = [("model_config.yaml", yaml.safe_dump(config, sort_keys=False).encode()),
+             ("model_weights.ckpt", ckpt.getbuffer()), *members.items()]
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with tarfile.open(path, "w") as tar:
+        for name, data in files:
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+    return path
+
+
+def write_nemo(path, model) -> str:
+    """``model`` (a port HybridRNNTCTC) as a .nemo tar: model_config.yaml,
+    model_weights.ckpt and one SentencePiece model of vocab_per_lang
+    pieces a language."""
+    config = nemo_config(model.cfg)
+    spm = spm_model_bytes(spm_pieces(model.cfg.vocab_per_lang))
+    members = {lang["model_path"].removeprefix("nemo:"): spm
+               for lang in config["tokenizer"]["langs"].values()}
+    return write_nemo_tar(path, config, nemo_state_dict(model), members)
+
+
+def all_launches():
+    """Every kernel's launch count, the beam's included."""
+    from indic_cl_asr_torch.ops import beam_fused as bfm
+
+    return {**{k: w.launches for k, w in counted_wrappers().items()},
+            "rnnt_beam_search_fused": bfm.rnnt_beam_search_fused.launches}
+
+
+def reset_all_launches():
+    from indic_cl_asr_torch.ops import beam_fused as bfm
+
+    reset_training_counts()
+    bfm.rnnt_beam_search_fused.launches = 0
+
+
+def run_pretrained(dev, rec, entries, tok, langs):
+    """Phase 10: the pretrained path at the flagship's width. Phase 4's
+    serving model in f32 (its emitting weights; the BatchNorm statistics of
+    one of its data's batches, the blank biases calibrated after them)
+    written as a .nemo with twelve SentencePiece models of 256 pieces;
+    ``restore_pretrained`` on the card (bit-equal parameters and
+    statistics, the config equal to the source's); ``transcribe.main
+    --nemo`` per decoder on phase 4's WAVs as a manifest under the
+    checkpoint's key "hi" (texts equal to a Transcriber over the source
+    with the restored tokenizer); ``eval_pretrained.main`` on the same WAVs
+    as the test split. Its languages come from config.yaml (the first
+    ``n_langs`` of its names: "hindi"), which the checkpoint's tokenizer
+    does not know, so it takes ``--local_tokenizer`` (phase 4's "hindi"
+    tokenizer padded to 256 pieces) and its records must equal the WER of
+    a Transcriber over the source with that tokenizer. Every main's
+    launches are counted: flash 17 x the encoded batches, the greedy decode
+    one per RNNT batch, every other kernel none. Then the f32 flash forward
+    and greedy decode are timed at the long bucket's batch. Returns the
+    counted runs' launches."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from indic_cl_asr_torch.audio.features import FrontendConfig
+    from indic_cl_asr_torch.audio.io import load_audio
+    from indic_cl_asr_torch.data.manifest import write_manifest
+    from indic_cl_asr_torch.data.pipeline import BucketSpec, _assemble
+    from indic_cl_asr_torch.data.tokenizer import CharTokenizer, MultilingualTokenizer
+    from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC, flagship_config
+    from indic_cl_asr_torch.models.nemo_ingest import restore_pretrained
+    from indic_cl_asr_torch.ops import decode_fused as dfm
+    from indic_cl_asr_torch.ops import flash_mhsa as fm
+    from indic_cl_asr_torch.scripts import eval_pretrained, transcribe
+    from indic_cl_asr_torch.train.eval import Transcriber
+    from indic_cl_asr_torch.train.metrics import wer
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke", "pretrained")
+    shutil.rmtree(root, ignore_errors=True)
+    wall, total = {}, {}
+    frontend = FrontendConfig()
+    spec = BucketSpec(boundaries_sec=(4.0, 8.0), max_tokens=(64, 128))
+    long = [e for e in entries if spec.bucket_of(e.duration) == 1][:16]
+    lang_index = {l: i for i, l in enumerate(langs)}
+    long_batch = _assemble(long, len(long), 1, spec, tok, lang_index, 0, load_audio, None)
+
+    # 1. the source model and its .nemo
+    t0 = time.perf_counter()
+    src = HybridRNNTCTC(flagship_config(torch.float32, attn_impl="flash"), device=dev)
+    serving_weights_(src, seed=0)
+    batch_norm_stats_(src, long_batch, frontend)
+    biases = calibrate_blank_(src, long_batch, frontend)
+    nemo = write_nemo(os.path.join(root, "flagship.nemo"), src)
+    wall["write_s"] = time.perf_counter() - t0
+    size = os.path.getsize(nemo)
+
+    # 2. restore on the card
+    timings = {}
+    t0 = time.perf_counter()
+    model, mcfg, ptok = restore_pretrained(nemo, os.path.join(root, "spm"), device=dev,
+                                           timings=timings)
+    wall["restore_s"] = time.perf_counter() - t0
+    got, want = model.state_dict(), src.state_dict()
+    unequal = sorted(n for n in want if n not in got or not torch.equal(got[n], want[n]))
+    if unequal or set(got) != set(want) or mcfg != src.cfg:
+        raise AssertionError(f"pretrained: restored tensors differ {unequal[:4]} "
+                             f"(of {len(want)}), config {mcfg} != {src.cfg}")
+    log(f"  .nemo {size} B written in {wall['write_s']:.2f} s; restored in "
+        f"{wall['restore_s']:.2f} s {timings}: {len(want)} tensors bit-equal, config equal, "
+        f"tokenizer languages {ptok.langs}, blank biases {biases}")
+
+    def count(part, t0):
+        torch.cuda.synchronize()
+        wall[part] = time.perf_counter() - t0
+        launches = all_launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return launches
+
+    def source_hyps(tokenizer, languages, es, decoder):
+        tr = Transcriber(model=src, tokenizer=tokenizer, languages=languages,
+                         frontend=frontend, batch_size=16, bucket_spec=BucketSpec())
+        return tr.transcribe(es, decoder)
+
+    # 3. transcribe --nemo, the manifest under the checkpoint's key
+    hi = [dataclasses.replace(e, lang="hi") for e in entries]
+    manifest = os.path.join(root, "hi.jsonl")
+    write_manifest(manifest, hi)
+    batches = eval_batches(hi)
+    checks = {}
+    for dec in ("rnnt", "ctc"):
+        reset_all_launches()
+        t0 = time.perf_counter()
+        hyps, lines = quiet_main(transcribe.main, ["--nemo", nemo, "--manifest", manifest,
+                                                   "--decoder", dec, "--wer",
+                                                   "--device", dev.type])
+        launches = count(f"transcribe_{dec}_s", t0)
+        ref = source_hyps(ptok, ptok.langs, hi, dec)
+        want_l = {k: 0 for k in launches}
+        want_l["flash_relpos_mhsa"] = N_LAYERS * batches
+        want_l["rnnt_greedy_decode_fused"] = batches if dec == "rnnt" else 0
+        checks[f"transcribe_{dec}"] = {
+            "texts_as_source": hyps == ref, "non_empty": sum(bool(h.strip()) for h in hyps),
+            "wer": json.loads(lines[-1])["wer"], "launches": launches,
+            "launches_as_work": launches == want_l}
+
+    # 4. eval_pretrained on the same WAVs as the test split
+    mdir = os.path.join(root, "manifests")
+    os.makedirs(mdir)
+    for split, _ in CLI_SPLITS:
+        write_manifest(os.path.join(mdir, f"hindi_{split}.jsonl"), entries)
+    local = os.path.join(root, "tokenizer")
+    hindi = tok.tokenizers_dict["hindi"]
+    local_tok = MultilingualTokenizer({"hindi": CharTokenizer(
+        hindi.vocab + [f"<pad{i}>" for i in range(hindi.vocab_size, 256)])})
+    local_tok.save(local)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    records, _ = quiet_main(eval_pretrained.main, [
+        "--nemo", nemo, "--dataset.manifest_dir", mdir, "--n_langs", "1",
+        "--local_tokenizer", local, "--split", "test", "--device", dev.type])
+    launches = count("eval_pretrained_s", t0)
+    want_l = {k: 0 for k in launches}
+    want_l["flash_relpos_mhsa"] = N_LAYERS * 2 * batches
+    want_l["rnnt_greedy_decode_fused"] = batches
+    refs = [e.text for e in entries]
+    want_r = [{"lang": "hindi", "decoder": dec, "split": "test",
+               "wer": round(float(wer(refs, source_hyps(local_tok, ["hindi"], entries, dec))),
+                            4), "n": len(entries)} for dec in ("rnnt", "ctc")]
+    checks["eval_pretrained"] = {"records": records, "records_as_source": records == want_r,
+                                 "launches": launches, "launches_as_work": launches == want_l}
+    log(f"  pretrained path: {checks}")
+    bad = [k for k, c in checks.items()
+           if not c["launches_as_work"] or not c.get("records_as_source", True)
+           or not c.get("texts_as_source", True) or c.get("non_empty", 1) == 0]
+    if bad:
+        raise AssertionError(f"pretrained: {bad} failed: {checks}")
+
+    # 5. the f32 kernels at the long bucket's batch, on the restored model
+    inputs = capture_main_path_inputs(model, frontend, long_batch)
+    q, k, v, p, u, vb, lens = inputs["flash"]
+    B, T, E = q.shape
+    dargs = (inputs["f_proj"], inputs["enc_lens"], inputs["lang"], model)
+    # bound_ms takes f32 work at the bf16 tensor-core peak, as the joint's
+    # f32 rows do; f32_core_bound_ms is the same work at the CUDA-core rate
+    with torch.inference_mode():
+        nbytes, flops = fm.work(B, T, E, lens.cpu(), itemsize=4)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        f32 = {"flash_relpos_mhsa": {
+            "ms": cuda_ms(lambda: fm.flash_relpos_mhsa(q, k, v, p, u, vb, lens, n_heads=8)),
+            "plain_ms": cuda_ms(lambda: fm.flash_relpos_mhsa_reference(
+                q, k, v, p, u, vb, lens, n_heads=8)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "f32_core_bound_ms": bound_ms(nbytes, flops, PEAK_F32_FLOPS)[0],
+            "shape": [B, T, E]}}
+        dfm.reset_counts()
+        ms = cuda_ms(lambda: dfm.rnnt_greedy_decode_fused(*dargs), iters=5, warmup=0)
+        work = {k_: v_ // 5 if k_ in ("joint_evals", "lstm_steps") else v_
+                for k_, v_ in dfm.work_counts().items()}
+        nbytes, flops = dfm.work(B, inputs["f_proj"].shape[1], inputs["f_proj"].shape[2],
+                                 640, 257, work["joint_evals"], work["lstm_steps"], itemsize=4)
+        b_ms, b_by = bound_ms(nbytes, flops)
+        f32["rnnt_greedy_decode_fused"] = {
+            "ms": ms, "plain_ms": cuda_ms(lambda: dfm.rnnt_greedy_decode_fused_reference(
+                *dargs), iters=2, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "f32_core_bound_ms": bound_ms(nbytes, flops, PEAK_F32_FLOPS)[0], "work": work}
+    del model, inputs, src
+    torch.cuda.empty_cache()
+    wall["phase_s"] = time.perf_counter() - t_phase
+    rec["pretrained"] = {"wall_s": wall, "restore_s": timings, "nemo_bytes": size,
+                         "checks": checks, "launches": total, "f32": f32}
+    log(f"  f32 kernels at B{B} T{T}: {f32}")
+    print("pretrained: " + json.dumps({"wall_s": wall, "restore_s": timings,
+                                        "launches": total}), flush=True)
+    return total, f32
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2588,13 +2956,13 @@ def main() -> int:
     card = nvidia_smi()
     rec = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     print(card, flush=True)
-    log(f"[1/9] device: {torch.cuda.get_device_name(0)} | "
+    log(f"[1/10] device: {torch.cuda.get_device_name(0)} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     secs = _build.build()
     rec["build_s"] = time.perf_counter() - t0
-    log(f"[2/9] build: {rec['build_s']:.1f} s {secs}")
+    log(f"[2/10] build: {rec['build_s']:.1f} s {secs}")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2614,7 +2982,7 @@ def main() -> int:
         f"{rec['flash_backward_build']['dynamic_shared_bytes']}; the scalar kernel (f32, "
         f"and bf16 at D128): ptxas {rec['flash_backward_build']['scalar_ptxas']}")
 
-    log("[3/9] kernels vs plain versions on the card")
+    log("[3/10] kernels vs plain versions on the card")
     check_flash(dev, rec)
     check_decode(dev, rec)
     check_beam(dev, rec)
@@ -2623,40 +2991,45 @@ def main() -> int:
     check_head_dim_route(dev, rec)
     check_joint(dev, rec)
 
-    log("[4/9] serving slice (flagship width, seeded random weights)")
+    log("[4/10] serving slice (flagship width, seeded random weights)")
     inputs, launches, decode_work, data = run_slice(dev, rec)
 
-    log("[5/9] timing at the serving path's shapes")
+    log("[5/10] timing at the serving path's shapes")
     kernels = time_kernels(inputs, launches, decode_work, rec)
     del inputs
     torch.cuda.empty_cache()
 
-    log("[6/9] training slice (flagship width, bf16, layers 0-11 frozen)")
+    log("[6/10] training slice (flagship width, bf16, layers 0-11 frozen)")
     train_launches, captured, host_batch = run_training(dev, rec, *data)
     kernels += time_training_kernels(captured, train_launches, rec)
     del captured
     torch.cuda.empty_cache()
 
-    log("[7/9] f32 step equality, card kernels vs CPU plain versions")
+    log("[7/10] f32 step equality, card kernels vs CPU plain versions")
     for impl in ("xla", "pallas"):
         check_step_f32(dev, rec, host_batch, rnnt_impl=impl)
 
-    log("[8/9] CL sequence (flagship width, rnnt_impl='pallas'; naive, EWC, MAS, LwF)")
+    log("[8/10] CL sequence (flagship width, rnnt_impl='pallas'; naive, EWC, MAS, LwF)")
     tasks, tok = make_cl_data(os.path.join(ROOT, "build", "chip_smoke", "cl", "wavs"))
     kernels += run_cl(dev, rec, tasks, tok)
 
-    log("[9/9] the command line (config.yaml's flagship, --n_langs 2): cl_baseline, "
+    log("[9/10] the command line (config.yaml's flagship, --n_langs 2): cl_baseline, "
         "transcribe, results")
     rec["cli_launches"] = run_cli(dev, rec, tasks, tok)
+
+    log("[10/10] the pretrained path: a .nemo of phase 4's flagship in f32, "
+        "restore_pretrained, transcribe --nemo, eval_pretrained")
+    rec["pretrained_launches"], f32 = run_pretrained(dev, rec, *data)
     order = ["flash_relpos_mhsa", "flash_relpos_mhsa_backward", "rnnt_alpha",
              "rnnt_beta", "joint_fused_forward", "joint_fused_backward",
              "rnnt_greedy_decode_fused", "rnnt_beam_search_fused"]
     kernels.sort(key=lambda k: order.index(k["name"]))
     # each kernel's launches over the main path's counted runs: the serving
     # slice (phase 4; the beam's from its own path), the training steps
-    # (phase 6), the CL sequence (phase 8) and the command line (phase 9)
+    # (phase 6), the CL sequence (phase 8), the command line (phase 9) and the
+    # pretrained path (phase 10)
     phases = {"serving": launches, "training": train_launches, "cl": rec["cl_launches"],
-              "cli": rec["cli_launches"]}
+              "cli": rec["cli_launches"], "pretrained": rec["pretrained_launches"]}
     rec["main_path_launches"] = {}
     for line in kernels:
         by = {ph: c.get(line["name"], 0) for ph, c in phases.items()}
@@ -2664,6 +3037,8 @@ def main() -> int:
         rec["main_path_launches"][line["name"]] = by
         if line["launches"] == 0:
             raise AssertionError(f"{line['name']} was not launched on the main path")
+        if line["name"] in f32:  # phase 10's f32 time beside the bf16 one
+            line["f32_ms"] = f32[line["name"]]["ms"]
     log(f"  launches on the main path by phase: {rec['main_path_launches']}")
     rec["kernels"] = kernels
     # the end-to-end numbers the fused joint moves: a flagship CL step

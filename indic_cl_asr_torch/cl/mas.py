@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.rnnt_loss_fused import _activate
+from ..models.common import activate
 
 
 @dataclasses.dataclass
@@ -60,7 +60,7 @@ def make_penalty_fn(cfg: MASConfig, state: MASState):
 def joint_logits(f_chunk, g_proj, head_w, head_b, activation: str, uniform_head: bool):
     """[B, Tc, H] x [B, U1, H] -> f32 joint logits [B, Tc, U1, V1]: the
     head cast to the compute dtype, exact products, f32 sums."""
-    inp = _activate(f_chunk[:, :, None, :] + g_proj[:, None, :, :], activation)
+    inp = activate(f_chunk[:, :, None, :] + g_proj[:, None, :, :], activation)
     B, Tc, U1, H = inp.shape
     x = inp.float().reshape(B, Tc * U1, H)
     if uniform_head:

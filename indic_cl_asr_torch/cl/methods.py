@@ -134,7 +134,7 @@ class MASMethod(_ImportanceMethod):
             surrogate = M.mas_surrogate(
                 self.cfg, f_proj, g_proj, model.joint.head_kernel[lang],
                 model.joint.head_bias[lang], ctc_logits,
-                chunk_size=step_cfg.rnnt_chunk_size, row_mask=_row_mask(batch, f.device),
+                activation=model.cfg.joint_activation, chunk_size=step_cfg.rnnt_chunk_size, row_mask=_row_mask(batch, f.device),
                 uniform_head=step_cfg.uniform_lang_head)
         grads = _grads_by_name(surrogate, self.names, self.params)
         return M.accumulate_importance(acc, grads)
@@ -183,7 +183,8 @@ class LwFMethod(CLMethod):
                     batch["lang_ids"], rngs_teacher, True, batch.get("audio_len_host"))
             ctc_kd = L.ctc_kd_loss(ctc_s, ctc_t, row_mask=row_mask)
             rnnt_kd = L.joint_kd_chunked(
-                fs, gs, ft, gt, hws, hbs, hwt, hbt, chunk_size=step_cfg.rnnt_chunk_size,
+                fs, gs, ft, gt, hws, hbs, hwt, hbt, activation=model.cfg.joint_activation,
+                chunk_size=step_cfg.rnnt_chunk_size,
                 faithful_raw_logits=lcfg.faithful_raw_logits, row_mask=row_mask,
                 uniform_head=step_cfg.uniform_lang_head)
             kd, ctx = lcfg.knowledge_distillation, lcfg.knowledge_distillation_ctx

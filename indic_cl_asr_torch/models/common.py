@@ -85,6 +85,20 @@ class LayerNorm(nn.LayerNorm):
                             cast(self.bias, x.dtype), self.eps)
 
 
+JOINT_ACTIVATIONS = ("relu", "tanh", "sigmoid")
+
+
+def activate(x: torch.Tensor, activation: str) -> torch.Tensor:
+    """The joint's activation by name (the JAX package's ``_activate``)."""
+    if activation == "relu":
+        return torch.relu(x)
+    if activation == "tanh":
+        return torch.tanh(x)
+    if activation == "sigmoid":
+        return torch.sigmoid(x)
+    raise ValueError(f"joint activation {activation!r}: one of {JOINT_ACTIVATIONS}")
+
+
 def dropout_keep_mask(shape, rate: float, generator: torch.Generator,
                       device) -> torch.Tensor | None:
     """Bernoulli(1 - rate) keep mask drawn as 8-bit random bytes, the JAX

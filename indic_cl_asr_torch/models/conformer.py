@@ -7,11 +7,19 @@ MHSA and the conv module with BatchNorm):
   * ConvSubsampling: Conv2d(k3, s2, p1)+ReLU per round over (time, mel),
     then a Linear. The JAX package runs NHWC and flattens (F/4, C) in that
     order, so the port permutes NCHW to (T, F, C) before the flatten;
-  * layer order ½FFN -> MHSA -> conv(GLU, depthwise k, BatchNorm, swish)
+  * layer order ½FFN -> MHSA -> conv(GLU, depthwise k, norm, swish)
     -> ½FFN -> LayerNorm, residuals throughout; LayerNorm eps 1e-6 (Flax's
     default), BatchNorm eps 1e-5;
-  * the input scaled by √d_model, a float32 sin/cos position table over
-    [T-1 .. -(T-1)], and the (left, right) ``att_context_size`` band;
+  * the conv module's norm (``conv_norm_type``): BatchNorm, or Flax's
+    LayerNorm over the channels of each frame or GroupNorm (``group_norm<N>``,
+    N groups, 1 when omitted) over every frame of the padded T and C/N
+    channels, both eps 1e-6 with f32 statistics E[x²] - E[x]² and no
+    running statistics; the module keeps the name ``batch_norm``;
+  * ``subsampling_conv_channels`` channels in the subsampling convs (-1:
+    d_model);
+  * the input scaled by √d_model when ``xscale``, a float32 sin/cos
+    position table over [T-1 .. -(T-1)], and the (left, right)
+    ``att_context_size`` band;
   * ``attn_impl="flash"`` runs the flash rel-pos kernels
     (ops/flash_mhsa.py); ``"xla"`` is the eager path with the JAX XLA
     path's rounding: content and position scores rounded to the compute
@@ -39,8 +47,9 @@ package:
 
 Layer parameters are one module per layer; both JAX layouts (scanned
 ``stack/layers`` [L, ...] and unrolled ``layers_i``) load into it through
-models/convert.py. ``causal_conv``, Longformer ``global_tokens`` and the
-other conv norms arrive with later slices.
+models/convert.py. ``causal_conv`` and Longformer ``global_tokens`` arrive with later
+slices. ``dropout_emb`` and ``pos_emb_max_len`` are accepted and read by no module,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -65,10 +74,15 @@ class ConformerConfig:
     n_heads: int = 8
     ff_expansion_factor: int = 4
     conv_kernel_size: int = 31
+    conv_norm_type: str = "batch_norm"  # or "layer_norm" / "group_norm<N>"
     subsampling_factor: int = 4
+    subsampling_conv_channels: int = -1  # -1 -> d_model
     dropout: float = 0.1
     dropout_pre_encoder: float = 0.1
+    dropout_emb: float = 0.0
     dropout_att: float = 0.1
+    xscale: bool = True
+    pos_emb_max_len: int = 5000
     frozen_till: int = 0  # layers [0, frozen_till) carry no gradient
     # (left, right) attention context in frames; -1 = unlimited
     att_context_size: tuple[int, int] = (-1, -1)
@@ -78,6 +92,11 @@ class ConformerConfig:
     @property
     def d_ff(self) -> int:
         return self.d_model * self.ff_expansion_factor
+
+    @property
+    def conv_channels(self) -> int:
+        return (self.d_model if self.subsampling_conv_channels == -1
+                else self.subsampling_conv_channels)
 
     @property
     def sampling_num(self) -> int:
@@ -126,7 +145,7 @@ def _rel_shift(x: torch.Tensor) -> torch.Tensor:
 class ConvSubsampling(nn.Module):
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
-        C = cfg.d_model
+        C = cfg.conv_channels
         self.convs = nn.ModuleList(
             Conv2d(1 if i == 0 else C, C, 3, stride=2, padding=1, dtype=cfg.dtype)
             for i in range(cfg.sampling_num)
@@ -243,6 +262,50 @@ class BatchNorm(nn.Module):
         return (y + self.bias.float()[:, None]).to(x.dtype)
 
 
+class GroupNorm(nn.Module):
+    """Flax's LayerNorm (``groups=None``: over the C channels of each frame)
+    or GroupNorm (over every frame of the padded T and the C/groups
+    channels of a group, so a row's result depends on its padding) of
+    [B, C, T], in f32: statistics E[x] and E[x²] - E[x]² clipped at 0,
+    eps 1e-6, ``(x - mean)·(rsqrt(var + eps)·scale) + bias``; no running
+    statistics."""
+
+    def __init__(self, C: int, groups: int | None, eps: float = 1e-6):
+        super().__init__()
+        if groups is not None and (groups <= 0 or C % groups):
+            raise ValueError(f"{groups} groups do not divide {C} channels")
+        self.groups = groups
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(C))
+        self.bias = nn.Parameter(torch.zeros(C))
+
+    def forward(self, x):  # [B, C, T]
+        xf = x.float()
+        if self.groups is None:
+            mean = xf.mean(dim=1, keepdim=True)
+            sq = (xf * xf).mean(dim=1, keepdim=True)
+        else:
+            B, C, T = xf.shape
+            g = xf.reshape(B, self.groups, C // self.groups * T)
+            mean = g.mean(dim=2).repeat_interleave(C // self.groups, dim=1)[:, :, None]
+            sq = (g * g).mean(dim=2).repeat_interleave(C // self.groups, dim=1)[:, :, None]
+        var = torch.clamp(sq - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()[:, None]
+        return ((xf - mean) * mul + self.bias.float()[:, None]).to(x.dtype)
+
+
+def conv_norm(cfg: ConformerConfig) -> nn.Module:
+    """The conv module's norm named by ``cfg.conv_norm_type``."""
+    kind = cfg.conv_norm_type
+    if kind == "batch_norm":
+        return BatchNorm(cfg.d_model)
+    if kind == "layer_norm":
+        return GroupNorm(cfg.d_model, None)
+    if kind.startswith("group_norm"):
+        return GroupNorm(cfg.d_model, int(kind[len("group_norm"):] or 1))
+    raise ValueError(f"conv_norm_type={kind!r}")
+
+
 @contextlib.contextmanager
 def batch_stats_frozen(module: nn.Module):
     """Inside, train-mode BatchNorm normalises with the batch's statistics
@@ -260,8 +323,9 @@ def batch_stats_frozen(module: nn.Module):
 
 
 class ConformerConvModule(nn.Module):
-    """pointwise(2d) -> GLU -> mask -> depthwise(k) -> BatchNorm -> swish
-    -> pointwise(d)."""
+    """pointwise(2d) -> GLU -> mask -> depthwise(k) -> norm -> swish
+    -> pointwise(d); the norm is ``conv_norm(cfg)``, named ``batch_norm``
+    whatever its kind (the JAX package's and NeMo's name)."""
 
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
@@ -271,7 +335,7 @@ class ConformerConvModule(nn.Module):
             d, d, cfg.conv_kernel_size, padding=cfg.conv_kernel_size // 2,
             groups=d, dtype=cfg.dtype,
         )
-        self.batch_norm = BatchNorm(d)
+        self.batch_norm = conv_norm(cfg)
         self.pointwise_conv2 = Dense(d, d, dtype=cfg.dtype)
 
     def forward(self, x, pad_mask):
@@ -354,7 +418,8 @@ class ConformerEncoder(nn.Module):
             x = self.pre_encode(feats.transpose(1, 2))
             out_lens = subsampled_length(feat_lens.to(torch.int64), cfg).to(torch.int32)
             B, T, _ = x.shape
-            x = x * math.sqrt(cfg.d_model)
+            if cfg.xscale:
+                x = x * math.sqrt(cfg.d_model)
             x = dropout(x, cfg.dropout_pre_encoder, gen, self.training)
         pos_emb = rel_positional_encoding(T, cfg.d_model, x.device).to(x.dtype)
         idx = torch.arange(T, device=x.device)

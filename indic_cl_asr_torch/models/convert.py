@@ -12,6 +12,10 @@ whole tree and a partial save of named leaves
   * the depthwise Conv kernel [k, 1, C] becomes Conv1d [C, 1, k];
   * LayerNorm / BatchNorm ``scale`` becomes ``weight``, the BatchNorm
     statistics ``mean`` / ``var`` become ``running_mean`` / ``running_var``;
+    the conv module's ``layer_norm`` / ``group_norm<N>`` (still named
+    ``batch_norm``) carries scale and bias and no statistics, and the
+    subsampling convs any ``subsampling_conv_channels``: the same rules
+    load them;
   * the encoder layers load from either layout: the scanned stack
     (``encoder/stack/layers/<leaf>[L, ...]``, the flagship's) split per
     layer, or the unrolled ``encoder/layers_<i>``;

@@ -24,7 +24,8 @@ from torch import nn
 
 from ..device import resolve_device
 from .common import Rngs
-from .conformer import BatchNorm, ConformerConfig, ConformerEncoder, RelPosSelfAttention
+from .conformer import (BatchNorm, ConformerConfig, ConformerEncoder, GroupNorm,
+                        RelPosSelfAttention)
 from .ctc import CTCConfig, CTCDecoder
 from .rnnt import LSTM, JointConfig, PredictionConfig, PredictionNetwork, RNNTJoint
 
@@ -38,6 +39,7 @@ class HybridModelConfig:
     pred_rnn_layers: int = 1
     pred_dropout: float = 0.2
     joint_hidden: int = 640
+    joint_activation: str = "relu"  # or "tanh" / "sigmoid"
     joint_dropout: float = 0.2
     dtype: torch.dtype = torch.float32  # compute dtype of every module
 
@@ -68,6 +70,7 @@ class HybridModelConfig:
             encoder_hidden=self.encoder.d_model,
             pred_hidden=self.pred_hidden,
             joint_hidden=self.joint_hidden,
+            activation=self.joint_activation,
             dropout=self.joint_dropout,
             dtype=self.dtype,
         )
@@ -188,7 +191,7 @@ def init_weights_(model: HybridRNNTCTC, generator: torch.Generator) -> HybridRNN
             normal_(m.weight, m.weight[0].numel() ** -0.5)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (nn.LayerNorm, BatchNorm)):
+        elif isinstance(m, (nn.LayerNorm, BatchNorm, GroupNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()
         elif isinstance(m, LSTM):

@@ -8,7 +8,8 @@ Port of indic_cl_asr_tpu/models/rnnt.py:
     bias [4H]; the cell state is f32 and the gate math runs in the compute
     dtype. In training the label sequence gets a blank SOS in front
     (U+1 steps) and dropout follows the LSTM stack;
-  * joint: enc/pred projections, relu (the flagship's activation), and a
+  * joint: enc/pred projections, the activation (``relu``, the flagship's,
+    ``tanh`` or ``sigmoid``; another raises at construction), and a
     stacked per-language head [L, H, V_local + 1] (blank last) gathered per
     sample; logits in f32.
 
@@ -32,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import Dense, cast, dropout
+from .common import JOINT_ACTIVATIONS, Dense, activate, cast, dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +56,7 @@ class JointConfig:
     encoder_hidden: int = 512
     pred_hidden: int = 640
     joint_hidden: int = 640
+    activation: str = "relu"
     dropout: float = 0.2
     dtype: torch.dtype = torch.float32
 
@@ -163,6 +165,8 @@ class PredictionNetwork(nn.Module):
 class RNNTJoint(nn.Module):
     def __init__(self, cfg: JointConfig):
         super().__init__()
+        if cfg.activation not in JOINT_ACTIVATIONS:
+            raise ValueError(f"joint activation {cfg.activation!r}: one of {JOINT_ACTIVATIONS}")
         self.cfg = cfg
         self.enc = Dense(cfg.encoder_hidden, cfg.joint_hidden, dtype=cfg.dtype)
         self.pred = Dense(cfg.pred_hidden, cfg.joint_hidden, dtype=cfg.dtype)
@@ -185,7 +189,7 @@ class RNNTJoint(nn.Module):
     def step_logits(self, f_t, g_t, lang_ids):
         """Projected f_t [B, H] + projected g_t [B, H] -> [B, V_local+1] f32
         (the head cast to the compute dtype, the f32 bias added)."""
-        inp = torch.relu(f_t + g_t)
+        inp = activate(f_t + g_t, self.cfg.activation)
         lang = lang_ids.long()
         w = self.head_kernel[lang].to(self.cfg.dtype)  # [B, H, V+1]
         b = self.head_bias[lang]

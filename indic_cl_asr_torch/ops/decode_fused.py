@@ -38,7 +38,8 @@ the latency of its short head slice. Both stay far above the bytes bound
 of the whole launch.
 
 The joint activation is relu and the prediction net has one LSTM layer,
-as in the flagship. The TPU kernel's VMEM budget (``decode_vmem_bytes`` /
+as in the flagship; ``extract_decode_weights`` raises on any other model
+(``train/eval.py:resolve_decoders`` sends those to label-looping). The TPU kernel's VMEM budget (``decode_vmem_bytes`` /
 ``fits_fused_decode``) has no counterpart here: f_proj and the weights
 stay in device memory and L2, and only the decode state lives in shared
 memory. The card's own limits are the shared memory one block may use
@@ -101,6 +102,9 @@ def extract_decode_weights(model) -> dict:
     is replaced or changed in place."""
     if len(model.prediction.lstm) != 1:
         raise ValueError("the fused decode takes a single LSTM layer")
+    if model.cfg.joint_activation != "relu":
+        raise ValueError(f"the fused decode takes the relu joint, not "
+                         f"{model.cfg.joint_activation!r}")
     params = _decode_params(model)
     # inference tensors keep no version counter: their storage is the key
     key = tuple(

@@ -46,22 +46,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..models.common import dropout_keep_mask
+from ..models.common import activate, dropout_keep_mask
 from .joint_fused import joint_slabs
 from .rnnt_loss import _reduce, rnnt_nll_from_logprobs
 
 IMPLS = ("xla", "pallas")
 REMATS = ("full", "save_logits", "none")
-
-
-def _activate(x, activation: str):
-    if activation == "relu":
-        return torch.relu(x)
-    if activation == "tanh":
-        return torch.tanh(x)
-    if activation == "sigmoid":
-        return torch.sigmoid(x)
-    raise ValueError(activation)
 
 
 def _joint_dot_grads(inp, w, g):
@@ -94,7 +84,7 @@ class _JointDot(torch.autograd.Function):
 
 
 def _joint_input(f_chunk, g_proj, keep, activation, dropout_rate):
-    inp = _activate(f_chunk[:, :, None, :] + g_proj[:, None, :, :], activation)
+    inp = activate(f_chunk[:, :, None, :] + g_proj[:, None, :, :], activation)
     if keep is not None:
         inp = torch.where(keep, inp / (1.0 - dropout_rate), 0.0)
     return inp

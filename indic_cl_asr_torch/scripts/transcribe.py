@@ -1,4 +1,4 @@
-"""Transcribe WAV files or a manifest with a trained run.
+"""Transcribe WAV files or a manifest with a trained run or a ``.nemo``.
 
 The user-facing CLI over ``train/eval.py:Transcriber``, the port's
 counterpart of the JAX package's scripts/transcribe.py (the reference's
@@ -15,10 +15,14 @@ run directory (scripts/_common.py:build_all), so this needs only that:
     python -m indic_cl_asr_torch.scripts.transcribe --run outputs/<run_id> \\
         --task 0:hindi --decoder ctc --manifest test.jsonl --wer --device cpu
 
+    # a pretrained NeMo artifact instead of a run (its languages are the
+    # checkpoint's tokenizer keys: hi, bn, ...)
+    python -m indic_cl_asr_torch.scripts.transcribe --nemo model.nemo \\
+        --lang hi utt.wav
+
 Prints one JSON line per utterance: {"audio_filepath", "lang", "text"}
 (+ "ref" when the manifest carries transcripts), then a summary line
-with the WER when --wer is given. ``--nemo`` (a pretrained ``.nemo``)
-is not ported yet and exits with a usage error.
+with the WER when --wer is given.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import wave
 
 from ..audio.features import FrontendConfig
@@ -35,6 +40,7 @@ from ..data.pipeline import BucketSpec
 from ..data.tokenizer import MultilingualTokenizer
 from ..device import resolve_device
 from ..models.hybrid import HybridRNNTCTC
+from ..models.nemo_ingest import restore_pretrained
 from ..train.eval import DECODERS, Transcriber
 from ..train.metrics import wer
 from ..utils.checkpoint import SequenceCheckpointer, load_model
@@ -46,7 +52,7 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("wavs", nargs="*", help="WAV files to transcribe")
     p.add_argument("--run", help="run directory written by a driver")
-    p.add_argument("--nemo", help="pretrained .nemo artifact instead (not ported yet)")
+    p.add_argument("--nemo", help="pretrained .nemo artifact instead")
     p.add_argument(
         "--task", default=None,
         help="which sequence checkpoint, as idx:lang (default: latest)",
@@ -60,11 +66,7 @@ def parse_args(argv=None):
                    help="score against manifest transcripts")
     p.add_argument("--out", default=None, help="also write JSONL here")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ns = p.parse_args(argv)
-    if ns.nemo:
-        p.error("--nemo: reading a .nemo comes with a later slice of the port "
-                "(ROADMAP §1 item 2: models/nemo_ingest.py, models/pretrained.py)")
-    return ns
+    return p.parse_args(argv)
 
 
 def restore_run(run_dir: str, device=None):
@@ -100,11 +102,16 @@ def load_task_variables(run_dir, model, task: str | None, ckpt):
 
 def main(argv=None):
     ns = parse_args(argv)
-    assert ns.run, "--run <dir> required"
+    assert ns.run or ns.nemo, "--run <dir> or --nemo <path> required"
     assert ns.wavs or ns.manifest, "give WAV files or --manifest"
 
-    model, model_cfg, tokenizer, languages, cfg, ckpt = restore_run(ns.run, ns.device)
-    load_task_variables(ns.run, model, ns.task, ckpt)
+    if ns.run:
+        model, model_cfg, tokenizer, languages, cfg, ckpt = restore_run(ns.run, ns.device)
+        load_task_variables(ns.run, model, ns.task, ckpt)
+    else:
+        work = tempfile.mkdtemp(prefix="nemo_tok_")
+        model, model_cfg, tokenizer = restore_pretrained(ns.nemo, work, device=ns.device)
+        languages = list(tokenizer.langs)
 
     if ns.manifest:
         entries = read_manifest(ns.manifest)

@@ -9,8 +9,9 @@ Metric names match the reference
 (``{val|test}/perf_{lang}_{rnnt|ctc}_{wer|noisy_wer|avg_wer}``).
 
 ``greedy_impl``: ``"auto"`` picks the fused kernel on a CUDA model with a
-single-layer LSTM, label-looping on a CUDA model with a deeper
-prediction net, and frame-sync on the CPU (``resolve_decoders``);
+single-layer LSTM and the relu joint, label-looping on any other CUDA
+model (a deeper prediction net, a tanh or sigmoid joint), and frame-sync
+on the CPU (``resolve_decoders``);
 ``"fused"`` forces the kernel wrapper (on the CPU it runs its plain
 version); ``"framesync"`` that plain version, a batched Python-loop
 decoder, on any device; ``"labelsync"`` the label-looping decoder
@@ -19,12 +20,12 @@ kernel picks each row's own language head, so a mixed-language batch
 takes it too.
 
 ``beam_impl`` (decoder ``"rnnt_beam"``): ``"auto"`` picks the fused beam
-kernel on a CUDA model with a single-layer LSTM and the batched beam
-otherwise (``"xla"``, the JAX package's name for it); ``"fused"`` forces
-the kernel wrapper. Both take ``max_symbols`` as their expansion rounds
-per frame. The fused kernels take a single-layer LSTM prediction net and
-the relu joint (the port's only joint): an explicit ``"fused"`` on a
-deeper prediction net raises. ``"rnnt_beam_host"`` (the per-utterance Graves beam
+kernel on a CUDA model with a single-layer LSTM and the relu joint, and
+the batched beam otherwise (``"xla"``, the JAX package's name for it);
+``"fused"`` forces the kernel wrapper. Both take ``max_symbols`` as their
+expansion rounds per frame. The fused kernels take a single-layer LSTM
+prediction net and the relu joint: an explicit ``"fused"`` on a deeper
+prediction net or another joint activation raises at construction. ``"rnnt_beam_host"`` (the per-utterance Graves beam
 on the encoder's projections) and ``"ctc_beam"`` (prefix beam search on
 the CTC log-probs) run on the host, one real row at a time.
 """
@@ -56,13 +57,14 @@ DECODERS = ("rnnt", "ctc", "rnnt_beam", "rnnt_beam_host", "ctc_beam")
 
 
 def resolve_decoders(greedy_impl: str, beam_impl: str, device: torch.device,
-                     pred_rnn_layers: int) -> tuple[str, str]:
+                     pred_rnn_layers: int, joint_activation: str = "relu") -> tuple[str, str]:
     """``"auto"`` greedy and beam choices from the device and the model's
     config, as the JAX package makes them: the fused kernels on a CUDA
-    model with a single-layer LSTM; label-looping greedy and the batched
-    ("xla") beam on a CUDA model with a deeper prediction net; frame-sync
-    greedy and the batched beam on the CPU. Other values pass through."""
-    fused = device.type == "cuda" and pred_rnn_layers == 1
+    model with a single-layer LSTM and the relu joint; label-looping greedy
+    and the batched ("xla") beam on any other CUDA model (a deeper
+    prediction net, a tanh or sigmoid joint); frame-sync greedy and the
+    batched beam on the CPU. Other values pass through."""
+    fused = device.type == "cuda" and pred_rnn_layers == 1 and joint_activation == "relu"
     if greedy_impl == "auto":
         greedy_impl = ("fused" if fused else "labelsync") if device.type == "cuda" else "framesync"
     if beam_impl == "auto":
@@ -91,7 +93,8 @@ class Transcriber:
         cfg = self.model.cfg
         self.device = self.model.device
         self.greedy_impl, self.beam_impl = resolve_decoders(
-            self.greedy_impl, self.beam_impl, self.device, cfg.pred_rnn_layers
+            self.greedy_impl, self.beam_impl, self.device, cfg.pred_rnn_layers,
+            cfg.joint_activation,
         )
         if self.greedy_impl not in ("fused", "framesync", "labelsync"):
             raise ValueError(f"greedy_impl={self.greedy_impl!r}")
@@ -103,6 +106,11 @@ class Transcriber:
                 raise ValueError(
                     f"the fused {what} takes a single-layer LSTM, the model has "
                     f"{cfg.pred_rnn_layers}: use {what}_impl=\"{other}\""
+                )
+            if impl == "fused" and cfg.joint_activation != "relu":
+                raise ValueError(
+                    f"the fused {what} takes the relu joint, the model's is "
+                    f"{cfg.joint_activation!r}: use {what}_impl=\"{other}\""
                 )
         if self.frontend.n_mels != cfg.encoder.feat_in:
             raise ValueError("front-end mel bins must match encoder feat_in")

@@ -133,7 +133,7 @@ def hybrid_forward_loss(model, step_cfg: StepConfig, batch: dict,
     tokens, token_len = batch["tokens"], batch["token_len"]
     rnnt = rnnt_loss_fused(
         f_proj, g_proj, head_w, head_b, tokens, enc_lens, token_len,
-        blank=cfg.blank_local, reduction="mean_batch",
+        blank=cfg.blank_local, activation=cfg.joint_activation, reduction="mean_batch",
         chunk_size=step_cfg.rnnt_chunk_size,
         dropout_rate=cfg.joint_dropout if train else 0.0,
         generator=rngs.device if rngs is not None else None,

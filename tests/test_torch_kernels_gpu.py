@@ -166,6 +166,10 @@ def test_decode_kernel_rejects_what_it_does_not_take(cuda):
     model = HybridRNNTCTC(tiny_config(pred_rnn_layers=2), device=cuda)
     with pytest.raises(ValueError):
         rnnt_greedy_decode_fused(f_proj.float()[..., :32], lens, lang, model)
+    # a tanh joint: the kernel's is relu
+    model = HybridRNNTCTC(tiny_config(joint_activation="tanh"), device=cuda)
+    with pytest.raises(ValueError, match="relu"):
+        rnnt_greedy_decode_fused(f_proj.float()[..., :32], lens, lang, model)
     # one block's shared memory holds the full g and joint input (two f32
     # vectors of the joint width) beside its own partial sums: a joint
     # width of 16384 fits the 227 KB a block may have, 32768 does not, and
@@ -777,6 +781,10 @@ def test_beam_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):  # two LSTM layers
         bfm.rnnt_beam_search_fused(f_proj.float()[..., :32], lens, lang,
                                    HybridRNNTCTC(tiny_config(pred_rnn_layers=2), device=cuda))
+    with pytest.raises(ValueError, match="relu"):  # the kernel's joint is relu
+        bfm.rnnt_beam_search_fused(f_proj.float()[..., :32], lens, lang,
+                                   HybridRNNTCTC(tiny_config(joint_activation="tanh"),
+                                                 device=cuda))
     assert bfm.rnnt_beam_search_fused.launches == n0
     bfm.reset_counts()
     bfm.rnnt_beam_search_fused(f_proj, lens, lang, model, beam_size=2)
@@ -927,3 +935,52 @@ def test_cl_command_line_on_the_card_launches_the_kernels(cuda, tmp_path):
     assert got == [2 * batches, 0, 0, 0, batches]
     with open(os.path.join(run, "sequence", "sequence.json")) as f:
         assert json.load(f)["completed_tasks"] == langs
+
+
+@pytest.mark.gpu
+def test_pretrained_layer_norm_tanh_model_on_the_card(cuda, tmp_path):
+    """A 2-layer model at flagship width (d512 in 8 heads, 12 heads of 257
+    classes) with the ``layer_norm`` conv norm and a ``tanh`` joint, written
+    as a .nemo (chip_smoke.write_nemo) and built through
+    ``restore_pretrained``: on the card "auto" takes label-looping greedy
+    (the fused decode is relu-only), with no decode launch and 2 flash
+    launches a batch; its f32 tokens equal the CPU's (frame-sync)."""
+    import dataclasses
+    import types
+
+    from chip_smoke import calibrate_blank_, serving_weights_, write_nemo
+    from indic_cl_asr_torch.audio.features import FrontendConfig
+    from indic_cl_asr_torch.models.nemo_ingest import restore_pretrained
+    from indic_cl_asr_torch.ops import decode_fused as dfm
+    from indic_cl_asr_torch.ops import flash_mhsa as fm
+    from indic_cl_asr_torch.train.eval import Transcriber
+
+    cfg = flagship_config(torch.float32, n_layers=2, attn_impl="flash")
+    cfg = dataclasses.replace(cfg, joint_activation="tanh", encoder=dataclasses.replace(
+        cfg.encoder, conv_norm_type="layer_norm"))
+    src = serving_weights_(HybridRNNTCTC(cfg, device="cpu"), seed=0)
+    g = torch.Generator().manual_seed(1)
+    S = 3 * 16000
+    audio = 0.1 * torch.randn(4, S, generator=g)
+    audio_len = torch.tensor([S, S - 4000, S // 2, 8000], dtype=torch.int32)
+    lang = torch.tensor([0, 0, 3, 11], dtype=torch.int32)
+    calibrate_blank_(src, types.SimpleNamespace(audio=audio.numpy(), audio_len=audio_len.numpy(),
+                                                lang_ids=lang.numpy()), FrontendConfig())
+    nemo = write_nemo(str(tmp_path / "m.nemo"), src)
+    ids = {}
+    for dev in ("cuda", "cpu"):
+        model, mcfg, tok = restore_pretrained(nemo, str(tmp_path / dev), device=dev)
+        assert mcfg == cfg and tok.langs[:2] == ["hi", "bn"]
+        tr = Transcriber(model=model, tokenizer=tok, languages=tok.langs,
+                         frontend=FrontendConfig())
+        fm.flash_relpos_mhsa.launches = 0
+        dfm.reset_counts()
+        ids[dev] = tr.decode_batch(audio.to(dev), audio_len.to(dev), lang.to(dev), "rnnt")
+        if dev == "cuda":
+            assert (tr.greedy_impl, tr.beam_impl) == ("labelsync", "xla")
+            assert fm.flash_relpos_mhsa.launches == 2 * tr.counts["encoder_batches"] == 2
+            assert dfm.rnnt_greedy_decode_fused.launches == 0
+            with pytest.raises(ValueError, match="relu joint"):
+                Transcriber(model=model, tokenizer=tok, languages=tok.langs,
+                            frontend=FrontendConfig(), greedy_impl="fused")
+    assert ids["cuda"] == ids["cpu"] and any(ids["cpu"])

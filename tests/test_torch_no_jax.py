@@ -33,6 +33,7 @@ def test_import_pulls_in_no_jax():
         "import indic_cl_asr_torch.utils.checkpoint, indic_cl_asr_torch.ops.joint_fused\n"
         "import indic_cl_asr_torch.scripts._common, indic_cl_asr_torch.scripts.transcribe\n"
         "import indic_cl_asr_torch.analysis.results, indic_cl_asr_torch.utils.config\n"
+        "import indic_cl_asr_torch.scripts.eval_pretrained\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
         "print(','.join(bad))\n" % (FORBIDDEN,)
     )

@@ -303,10 +303,11 @@ def test_transcribe_prints_the_jax_texts(cli_runs, capsys, decoder):
     assert p_out == j_out  # the same manifest: paths, texts, refs and the WER line
 
 
-def test_transcribe_rejects_nemo(capsys):
-    with pytest.raises(SystemExit):
-        p_transcribe.main(["--nemo", "model.nemo", "x.wav"])
-    assert "later slice" in capsys.readouterr().err
+def test_transcribe_rejects_nemo(tmp_path):
+    """--nemo restores a .nemo (tests/test_torch_pretrained.py); a path
+    that holds none is rejected before any audio is read."""
+    with pytest.raises(FileNotFoundError):
+        p_transcribe.main(["--nemo", str(tmp_path / "model.nemo"), "x.wav", "--device", "cpu"])
 
 
 # ---------------------------------------------------------------------------
