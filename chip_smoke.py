@@ -177,11 +177,30 @@ Phases, each of which fails the script when it fails:
    main's seconds and the f32 flash forward's and greedy decode's ms a
    launch at the long bucket's batch (CUDA events; ``f32_ms`` in their
    kernel lines).
+11. The streaming path at the flagship's width and depth: the model
+   config.yaml gives with ``--n_langs 12 --mixed_precision false
+   --model.causal_conv true --model.att_context_left 70
+   --model.att_context_right 0`` (17 layers d512 in 8 heads, conv kernel
+   31, x4, 257-wide heads, flash attention, f32), phase 4's emitting
+   weights and blank calibration, on phase 4's 4.5-8 s bucket (B16, the
+   mel zero-padded to a multiple of the 64-frame chunk). On every row's
+   valid frames: ``stream_full_utterance_cached`` (chunk 64) and
+   ``stream_full_utterance`` (chunk 64, window 1024 mel; 17 flash launches
+   a window with the (70, 0) band) equal the offline ``encode`` within
+   atol 2e-4 + rtol 1e-3; ``StreamingASR`` (``valid_mel`` on the last
+   chunks) gives the fused greedy decode's offline tokens row for row; on
+   a run dir saved for the model, ``stream_demo.main`` on two WAVs prints
+   the texts ``transcribe.main`` gives offline. Launches are reset before
+   and read after each part (the cache-aware step and ``stream_demo``
+   launch no kernel; the offline yardstick and ``transcribe`` 17 flash and
+   one decode). Prints the cache-aware step's ms a chunk at B1 and B16 and
+   its real-time factor (a chunk is 0.64 s of audio), the windowed step's
+   at B16, in f32 and bf16, and the phase's seconds (``streaming:`` line).
 
 Prints the card's name and power limit (``nvidia-smi``) on a line of its
 own first, then the full record as one ``record {...}`` line, the
 ``{"kernels": [...]}`` line (each kernel's launches summed over the
-counted runs of phases 4, 6, 8, 9 and 10, the beam's over its own path), and as
+counted runs of phases 4, 6, 8, 9, 10 and 11, the beam's over its own path), and as
 its last line ``{"ok": true,
 "device": {...}}``; before them, the end-to-end numbers the fused joint
 moves (the flagship CL step's wall and device-busy ms, idle share and
@@ -2931,6 +2950,214 @@ def run_pretrained(dev, rec, entries, tok, langs):
                                         "launches": total}), flush=True)
     return total, f32
 
+def run_streaming(dev, rec, entries, overrides=()):
+    """Phase 11: the streaming path at the flagship's width and depth. The
+    model config.yaml gives with ``--n_langs 12 --mixed_precision false
+    --model.causal_conv true --model.att_context_left 70
+    --model.att_context_right 0`` (17 layers d512 in 8 heads, conv kernel
+    31, x4, 257-wide heads, flash attention; f32, where the decode is
+    token-exact), phase 4's emitting weights (``serving_weights_``, then
+    ``calibrate_blank_`` on this model), on phase 4's 4.5-8 s bucket (B16;
+    its mel zero-padded to a multiple of the 64-frame chunk). Checks, each
+    on every row's valid frames: (a) ``stream_full_utterance_cached``
+    (chunk 64) equals the offline ``encode`` within atol 2e-4 + rtol 1e-3
+    (the JAX tests' bar); (b) ``stream_full_utterance`` (chunk 64, window
+    1024 mel: the utterances never slide out of it) equals it too, with 17
+    flash launches a window; (c) ``StreamingASR`` with ``valid_mel`` on the
+    rows' last chunks gives the fused greedy decode's offline tokens, row
+    for row; (d) a run dir saved for this model (config.json, tokenizer/,
+    sequence/task_0_hindi.pt as ``save_task`` writes its model entry):
+    ``stream_demo.main`` on 2 of the WAVs prints the final texts
+    ``transcribe.main`` gives offline. Times the cache-aware step a chunk
+    at B1 and B16 (and the real-time factor: a chunk is 0.64 s) and the
+    windowed step, in f32 and once in bf16 (config.yaml's dtype, no token
+    check). ``overrides`` are more config flags (a narrowed rehearsal on
+    the CPU). Returns the counted runs' launches."""
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from indic_cl_asr_torch.audio.features import FrontendConfig, log_mel_spectrogram
+    from indic_cl_asr_torch.audio.io import load_audio
+    from indic_cl_asr_torch.data.pipeline import BucketSpec, _assemble
+    from indic_cl_asr_torch.data.tokenizer import CharTokenizer, MultilingualTokenizer
+    from indic_cl_asr_torch.models import streaming as S
+    from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC
+    from indic_cl_asr_torch.ops import decode_fused as dfm
+    from indic_cl_asr_torch.ops import flash_mhsa as fm
+    from indic_cl_asr_torch.scripts import _common as C
+    from indic_cl_asr_torch.scripts import stream_demo, transcribe
+    from indic_cl_asr_torch.utils.checkpoint import save_model
+
+    t_phase = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke", "streaming")
+    shutil.rmtree(root, ignore_errors=True)
+    run = os.path.join(root, "run")
+    argv = ["--n_langs", "12", "--mixed_precision", "false", "--model.causal_conv", "true",
+            "--model.att_context_left", "70", "--model.att_context_right", "0",
+            "--output_dir", root, "--use_wandb", "false", "--device", dev.type, *overrides]
+    cfg, _ = C.setup(argv)
+    langs = C.build_languages(cfg)
+    # phase 4's hindi char tokenizer padded to 256 pieces, for every language
+    hindi = CharTokenizer.train([" ".join(WORDS["hindi"])] * 4)
+    tok = MultilingualTokenizer({l: CharTokenizer(
+        hindi.vocab + [f"<pad{i}>" for i in range(hindi.vocab_size, 256)]) for l in langs})
+    model_cfg = C.build_model_cfg(cfg, tok, langs)
+    enc_cfg = model_cfg.encoder
+    L, A = enc_cfg.n_layers, enc_cfg.att_context_size[0]
+    model = HybridRNNTCTC(model_cfg, device=dev)
+    serving_weights_(model, seed=0)
+    frontend = FrontendConfig(n_mels=enc_cfg.feat_in)
+    spec = BucketSpec(boundaries_sec=(4.0, 8.0), max_tokens=(64, 128))
+    long = [e for e in entries if spec.bucket_of(e.duration) == 1][:16]
+    batch = _assemble(long, len(long), 1, spec, tok, {l: i for i, l in enumerate(langs)}, 0,
+                      load_audio, None)
+    biases = calibrate_blank_(model, batch, frontend)
+    os.makedirs(os.path.join(run, "sequence"))
+    with open(os.path.join(run, "config.json"), "w") as f:
+        json.dump(cfg.to_dict(), f, indent=2, default=str)
+    tok.save(os.path.join(run, "tokenizer"))
+    save_model(os.path.join(run, "sequence", "task_0_hindi.pt"), model)
+    CH = 64
+    with torch.inference_mode():
+        mel, mel_lens = log_mel_spectrogram(torch.from_numpy(batch.audio).to(dev),
+                                            torch.from_numpy(batch.audio_len).to(dev),
+                                            frontend)
+        mel = F.pad(mel, (0, -mel.shape[-1] % CH))
+        lang = torch.from_numpy(batch.lang_ids).to(dev)
+    B, _, T_mel = mel.shape
+    n_chunks = T_mel // CH
+    wall, total, checks = {}, {}, {}
+
+    def count(part):
+        launches = all_launches()
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        checks.setdefault("launches", {})[part] = launches
+        return launches
+
+    # the offline yardstick: encode and the fused greedy decode
+    reset_all_launches()
+    with torch.inference_mode():
+        f_off, enc_lens = model.encode(mel, mel_lens)
+        want_ids, want_lens = dfm.rnnt_greedy_decode_fused(
+            model.joint_project_enc(f_off), enc_lens, lang, model)
+    launches = count("offline")
+    if launches["flash_relpos_mhsa"] != L or launches["rnnt_greedy_decode_fused"] != 1:
+        raise AssertionError(f"streaming: offline launches {launches}")
+    valid = torch.arange(f_off.shape[1], device=dev)[None] < enc_lens[:, None]
+
+    def frames_check(name, got):
+        got = got[:, :f_off.shape[1]]
+        diff = (got - f_off).abs()[valid]
+        bar = 2e-4 + 1e-3 * f_off.abs()[valid]
+        checks[name] = {"max_abs_err": diff.max().item(),
+                        "max_over_bar": (diff / bar).max().item(),
+                        "ok": bool((diff <= bar).all())}
+
+    # (a) cache-aware, (b) windowed with its flash launches counted
+    reset_all_launches()
+    frames_check("cache_aware", S.stream_full_utterance_cached(S.CacheAwareStreamer(model, CH),
+                                                               mel))
+    launches = count("cache_aware")
+    if any(launches.values()):
+        raise AssertionError(f"streaming: the cache-aware step launched {launches}")
+    reset_all_launches()
+    se = S.StreamingEncoder(model, S.StreamingConfig(chunk_mel=CH, window_mel=1024))
+    frames_check("windowed", S.stream_full_utterance(se, mel))
+    launches = count("windowed")
+    checks["windowed"]["flash_launches_per_window"] = launches["flash_relpos_mhsa"] / (n_chunks + 1)
+    if launches != {**{k: 0 for k in launches}, "flash_relpos_mhsa": L * (n_chunks + 1)}:
+        raise AssertionError(f"streaming: windowed launches {launches}, want {L} a window")
+
+    # (c) StreamingASR, valid_mel on the rows' last chunks
+    asr = S.StreamingASR(model, chunk_mel=CH)
+    reset_all_launches()
+    state = asr.init(B)
+    for c0 in range(0, T_mel, CH):
+        (ids, lens), state = asr.step(state, mel[:, :, c0:c0 + CH], lang,
+                                      valid_mel=(mel_lens - c0).clamp(0, CH))
+    count("streaming_asr")
+    same = [bool(torch.equal(ids[b, :lens[b]], want_ids[b, :want_lens[b]])) for b in range(B)]
+    checks["streaming_asr"] = {"rows_equal": sum(same), "rows": B,
+                               "tokens": int(want_lens.sum()),
+                               "ok": all(same) and torch.equal(lens, want_lens)}
+
+    # (d) stream_demo against transcribe on two WAVs of the run dir
+    wavs = [e.audio_filepath for e in long[:2]]
+    reset_all_launches()
+    t0 = time.perf_counter()
+    hyps, _ = quiet_main(transcribe.main, ["--run", run, "--task", "0:hindi", "--lang", "hindi",
+                                           *wavs, "--device", dev.type])
+    torch.cuda.synchronize()
+    wall["transcribe_s"] = time.perf_counter() - t0
+    launches = count("transcribe")
+    texts = []
+    reset_all_launches()
+    for wav in wavs:
+        t0 = time.perf_counter()
+        _, lines = quiet_main(stream_demo.main, [wav, "--run", run, "--task", "0:hindi",
+                                                 "--device", dev.type])
+        torch.cuda.synchronize()
+        wall.setdefault("stream_demo_s", []).append(time.perf_counter() - t0)
+        texts.append(json.loads(lines[-1])["text"])
+    demo_launches = count("stream_demo")
+    checks["stream_demo"] = {"texts": texts, "transcribe": hyps, "ok": texts == hyps,
+                             "incremental_lines": len(lines) - 1}
+    if (launches["flash_relpos_mhsa"] != L or launches["rnnt_greedy_decode_fused"] != 1
+            or any(demo_launches.values())):
+        raise AssertionError(f"streaming: transcribe launches {launches}, stream_demo "
+                             f"{demo_launches}")
+    log(f"  streaming checks (f32, B{B}, {n_chunks} chunks of {CH} mel): {checks}")
+    bad = [k for k in ("cache_aware", "windowed", "streaming_asr", "stream_demo")
+           if not checks[k]["ok"]]
+    if bad:
+        raise AssertionError(f"streaming: {bad} failed: {checks}")
+
+    # step times a chunk (host clock around synchronised passes)
+    def pass_ms(step, init, rows):
+        state = init(rows)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for c0 in range(0, T_mel, CH):
+            _, state = step(state, mel[:rows, :, c0:c0 + CH])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n_chunks
+
+    def windowed_step(se):
+        def step(state, chunk):
+            *_, state = se.step(state, chunk)
+            return None, state
+        return step
+
+    times = {}
+    bf16 = HybridRNNTCTC(C.build_model_cfg(C.setup(argv + ["--mixed_precision", "true"])[0],
+                                           tok, langs), device=dev)
+    bf16.load_state_dict(model.state_dict())
+    for dtype, m in (("f32", model), ("bf16", bf16)):
+        ca = S.CacheAwareStreamer(m, CH)
+        win = S.StreamingEncoder(m, S.StreamingConfig(chunk_mel=CH, window_mel=1024))
+        for rows in (1, B):
+            pass_ms(ca.step, ca.init, rows)  # warm-up
+            ms = pass_ms(ca.step, ca.init, rows)
+            times[f"cache_aware_{dtype}_B{rows}_ms"] = ms
+            times[f"cache_aware_{dtype}_B{rows}_rtf"] = ms / (CH * frontend.hop_length
+                                                              / frontend.sample_rate * 1e3)
+        pass_ms(windowed_step(win), win.init, B)
+        times[f"windowed_{dtype}_B{B}_ms"] = pass_ms(windowed_step(win), win.init, B)
+    del bf16, model
+    torch.cuda.empty_cache()
+    wall["phase_s"] = time.perf_counter() - t_phase
+    rec["streaming"] = {"checks": checks, "times_ms_per_chunk": times, "wall_s": wall,
+                        "blank_biases": biases, "launches": total,
+                        "shape": {"B": B, "T_mel": T_mel, "chunk_mel": CH, "left": A}}
+    log(f"  streaming step ms a chunk ({nvidia_smi()}): {times}")
+    print("streaming: " + json.dumps({"card": nvidia_smi(), "wall_s": wall,
+                                       "times_ms_per_chunk": times, "launches": total}),
+          flush=True)
+    return total
+
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -2956,13 +3183,13 @@ def main() -> int:
     card = nvidia_smi()
     rec = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     print(card, flush=True)
-    log(f"[1/10] device: {torch.cuda.get_device_name(0)} | "
+    log(f"[1/11] device: {torch.cuda.get_device_name(0)} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     secs = _build.build()
     rec["build_s"] = time.perf_counter() - t0
-    log(f"[2/10] build: {rec['build_s']:.1f} s {secs}")
+    log(f"[2/11] build: {rec['build_s']:.1f} s {secs}")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -2982,7 +3209,7 @@ def main() -> int:
         f"{rec['flash_backward_build']['dynamic_shared_bytes']}; the scalar kernel (f32, "
         f"and bf16 at D128): ptxas {rec['flash_backward_build']['scalar_ptxas']}")
 
-    log("[3/10] kernels vs plain versions on the card")
+    log("[3/11] kernels vs plain versions on the card")
     check_flash(dev, rec)
     check_decode(dev, rec)
     check_beam(dev, rec)
@@ -2991,45 +3218,50 @@ def main() -> int:
     check_head_dim_route(dev, rec)
     check_joint(dev, rec)
 
-    log("[4/10] serving slice (flagship width, seeded random weights)")
+    log("[4/11] serving slice (flagship width, seeded random weights)")
     inputs, launches, decode_work, data = run_slice(dev, rec)
 
-    log("[5/10] timing at the serving path's shapes")
+    log("[5/11] timing at the serving path's shapes")
     kernels = time_kernels(inputs, launches, decode_work, rec)
     del inputs
     torch.cuda.empty_cache()
 
-    log("[6/10] training slice (flagship width, bf16, layers 0-11 frozen)")
+    log("[6/11] training slice (flagship width, bf16, layers 0-11 frozen)")
     train_launches, captured, host_batch = run_training(dev, rec, *data)
     kernels += time_training_kernels(captured, train_launches, rec)
     del captured
     torch.cuda.empty_cache()
 
-    log("[7/10] f32 step equality, card kernels vs CPU plain versions")
+    log("[7/11] f32 step equality, card kernels vs CPU plain versions")
     for impl in ("xla", "pallas"):
         check_step_f32(dev, rec, host_batch, rnnt_impl=impl)
 
-    log("[8/10] CL sequence (flagship width, rnnt_impl='pallas'; naive, EWC, MAS, LwF)")
+    log("[8/11] CL sequence (flagship width, rnnt_impl='pallas'; naive, EWC, MAS, LwF)")
     tasks, tok = make_cl_data(os.path.join(ROOT, "build", "chip_smoke", "cl", "wavs"))
     kernels += run_cl(dev, rec, tasks, tok)
 
-    log("[9/10] the command line (config.yaml's flagship, --n_langs 2): cl_baseline, "
+    log("[9/11] the command line (config.yaml's flagship, --n_langs 2): cl_baseline, "
         "transcribe, results")
     rec["cli_launches"] = run_cli(dev, rec, tasks, tok)
 
-    log("[10/10] the pretrained path: a .nemo of phase 4's flagship in f32, "
+    log("[10/11] the pretrained path: a .nemo of phase 4's flagship in f32, "
         "restore_pretrained, transcribe --nemo, eval_pretrained")
     rec["pretrained_launches"], f32 = run_pretrained(dev, rec, *data)
+
+    log("[11/11] the streaming path (flagship width and depth, causal conv, "
+        "att_context (70, 0), f32): cache-aware, windowed, StreamingASR, stream_demo")
+    rec["streaming_launches"] = run_streaming(dev, rec, data[0])
     order = ["flash_relpos_mhsa", "flash_relpos_mhsa_backward", "rnnt_alpha",
              "rnnt_beta", "joint_fused_forward", "joint_fused_backward",
              "rnnt_greedy_decode_fused", "rnnt_beam_search_fused"]
     kernels.sort(key=lambda k: order.index(k["name"]))
     # each kernel's launches over the main path's counted runs: the serving
     # slice (phase 4; the beam's from its own path), the training steps
-    # (phase 6), the CL sequence (phase 8), the command line (phase 9) and the
-    # pretrained path (phase 10)
+    # (phase 6), the CL sequence (phase 8), the command line (phase 9), the
+    # pretrained path (phase 10) and the streaming path (phase 11)
     phases = {"serving": launches, "training": train_launches, "cl": rec["cl_launches"],
-              "cli": rec["cli_launches"], "pretrained": rec["pretrained_launches"]}
+              "cli": rec["cli_launches"], "pretrained": rec["pretrained_launches"],
+              "streaming": rec["streaming_launches"]}
     rec["main_path_launches"] = {}
     for line in kernels:
         by = {ph: c.get(line["name"], 0) for ph, c in phases.items()}

@@ -26,8 +26,19 @@ MHSA and the conv module with BatchNorm):
     dtype, an f32 softmax, -1e9 masking and zeroed masked probabilities.
     ``attention_route`` resolves the route once from the config, as the
     JAX module routes T > 512 and global tokens to XLA: a flash config
-    whose head dim exceeds the kernels' largest (128) takes the eager
-    path;
+    whose head dim exceeds the kernels' largest (128), or with Longformer
+    global tokens, takes the eager path;
+  * ``causal_conv``: the depthwise conv pads (k-1, 0) instead of
+    (k//2, k//2), so a frame sees none of its future (the cache-aware
+    streaming of models/streaming.py needs it);
+  * Longformer ``global_tokens`` G > 0 (the reference's
+    RelPositionMultiHeadAttentionLongformer): the static positions 0, s,
+    2s, .. (G-1)s (s = ``global_tokens_spacing``) attend to and from every
+    valid position with content-only scores, from the shared projections
+    or from ``global_q/k/v`` when ``global_attn_separate``; every other
+    pair keeps the band. The global rows' outputs are drawn from the
+    global values. As in the JAX package, an in-band global key gives one
+    (global) score column, where NeMo's concatenation counts it twice;
 
 Parameters are f32 and cast to ``cfg.dtype`` where they are used
 (models/common.py). Train mode (``module.train()``) follows the JAX
@@ -47,9 +58,8 @@ package:
 
 Layer parameters are one module per layer; both JAX layouts (scanned
 ``stack/layers`` [L, ...] and unrolled ``layers_i``) load into it through
-models/convert.py. ``causal_conv`` and Longformer ``global_tokens`` arrive with later
-slices. ``dropout_emb`` and ``pos_emb_max_len`` are accepted and read by no module,
-as in the JAX package.
+models/convert.py. ``dropout_emb`` and ``pos_emb_max_len`` are accepted and read by
+no module, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -86,6 +96,11 @@ class ConformerConfig:
     frozen_till: int = 0  # layers [0, frozen_till) carry no gradient
     # (left, right) attention context in frames; -1 = unlimited
     att_context_size: tuple[int, int] = (-1, -1)
+    causal_conv: bool = False  # depthwise conv padded (k-1, 0)
+    # Longformer global tokens at 0, s, 2s, ..: G, s, separate projections
+    global_tokens: int = 0
+    global_tokens_spacing: int = 1
+    global_attn_separate: bool = False
     attn_impl: str = "xla"  # "xla" (eager) or "flash" (CUDA kernels)
     dtype: torch.dtype = torch.float32  # compute dtype
 
@@ -118,20 +133,23 @@ def subsampled_feat_dim(cfg: ConformerConfig) -> int:
     return f
 
 
-def rel_positional_encoding(length: int, d_model: int, device=None) -> torch.Tensor:
-    """[2L-1, d] float32 sin/cos over positions L-1 .. -(L-1), built like
-    the JAX package's rel_positional_encoding_dev (f32 iotas)."""
-    positions = (length - 1) - torch.arange(
-        2 * length - 1, dtype=torch.float32, device=device
-    )
+def sinusoids(first: int, n: int, d_model: int, device=None) -> torch.Tensor:
+    """[n, d] float32 sin/cos (interleaved) over the distances first,
+    first - 1, .., first - n + 1, from f32 iotas as the JAX package builds
+    them."""
+    positions = first - torch.arange(n, dtype=torch.float32, device=device)
     div_term = torch.exp(
         torch.arange(0, d_model, 2, dtype=torch.float32, device=device)
         * (-math.log(10000.0) / d_model)
     )
     ang = positions[:, None] * div_term[None, :]
-    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(
-        2 * length - 1, d_model
-    )
+    return torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1).reshape(n, d_model)
+
+
+def rel_positional_encoding(length: int, d_model: int, device=None) -> torch.Tensor:
+    """[2L-1, d] float32 sin/cos over positions L-1 .. -(L-1), the JAX
+    package's rel_positional_encoding_dev."""
+    return sinusoids(length - 1, 2 * length - 1, d_model, device)
 
 
 def _rel_shift(x: torch.Tensor) -> torch.Tensor:
@@ -164,12 +182,23 @@ class ConvSubsampling(nn.Module):
 
 def attention_route(cfg: ConformerConfig) -> str:
     """The attention path of every layer of ``cfg``: "flash" (the CUDA
-    kernels) for ``attn_impl="flash"`` at head dims the kernels take,
-    else "xla" (the eager path). Above head dim 128 the kernels would
-    need tiles split along D; until they exist those configs run eager."""
-    if cfg.attn_impl == "flash" and cfg.d_model // cfg.n_heads <= MAX_HEAD_DIM:
+    kernels) for ``attn_impl="flash"`` at head dims the kernels take and
+    without global tokens, else "xla" (the eager path). Above head dim 128
+    the kernels would need tiles split along D; until they exist those
+    configs run eager. Global tokens take the eager path as the JAX
+    module sends them to XLA: the kernels compute the band alone."""
+    if (cfg.attn_impl == "flash" and cfg.d_model // cfg.n_heads <= MAX_HEAD_DIM
+            and cfg.global_tokens == 0):
         return "flash"
     return "xla"
+
+
+def global_positions(cfg: ConformerConfig, T: int) -> torch.Tensor:
+    """bool [T]: the static global-token positions 0, s, .. (G-1)s below T."""
+    pos = torch.arange(cfg.global_tokens) * cfg.global_tokens_spacing
+    is_g = torch.zeros(T, dtype=torch.bool)
+    is_g[pos[pos < T]] = True
+    return is_g
 
 
 class RelPosSelfAttention(nn.Module):
@@ -185,6 +214,10 @@ class RelPosSelfAttention(nn.Module):
         self.linear_out = Dense(d, d, dtype=cfg.dtype)
         self.pos_bias_u = nn.Parameter(torch.zeros(H, d // H))
         self.pos_bias_v = nn.Parameter(torch.zeros(H, d // H))
+        if cfg.global_tokens > 0 and cfg.global_attn_separate:
+            self.global_q = Dense(d, d, dtype=cfg.dtype)
+            self.global_k = Dense(d, d, dtype=cfg.dtype)
+            self.global_v = Dense(d, d, dtype=cfg.dtype)
 
     def forward(self, x, pos_emb, lens, att_mask, rngs: Rngs | None = None):
         cfg = self.cfg
@@ -218,12 +251,29 @@ class RelPosSelfAttention(nn.Module):
         bd = torch.einsum("bthd,phd->bhtp", q + cast(self.pos_bias_v, dt), p)
         scores = (ac + _rel_shift(bd)) / math.sqrt(D)
         mask = att_mask[:, None]
+        if cfg.global_tokens > 0:
+            is_g = global_positions(cfg, T).to(x.device)
+            gq, gk, gv = q, k, v
+            if cfg.global_attn_separate:
+                gq, gk, gv = (lin(x).view(B, T, H, D)
+                              for lin in (self.global_q, self.global_k, self.global_v))
+            # a link with a global end takes the content-only global score
+            # and is open between any two valid positions
+            gscore = torch.einsum("bthd,bshd->bhts", gq, gk) / math.sqrt(D)
+            use_g = is_g[:, None] | is_g[None, :]
+            scores = torch.where(use_g, gscore, scores)
+            diag = att_mask.diagonal(dim1=1, dim2=2)  # the band holds distance 0
+            valid_pair = diag[:, :, None] & diag[:, None, :]
+            mask = (att_mask | (valid_pair & use_g))[:, None]
         scores = scores.masked_fill(~mask, -1e9)
         attn = torch.softmax(scores.float(), dim=-1)
         attn = torch.where(mask, attn, 0.0)
         attn = dropout(attn, drop, rngs.device if rngs else None, self.training).to(dt)
-        out = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, cfg.d_model)
-        return self.linear_out(out)
+        out = torch.einsum("bhts,bshd->bthd", attn, v)
+        if cfg.global_tokens > 0:  # the global rows draw on the global values
+            out = torch.where(is_g[None, :, None, None],
+                              torch.einsum("bhts,bshd->bthd", attn, gv), out)
+        return self.linear_out(out.reshape(B, T, cfg.d_model))
 
 
 class BatchNorm(nn.Module):
@@ -329,12 +379,12 @@ class ConformerConvModule(nn.Module):
 
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
-        d = cfg.d_model
+        d, k = cfg.d_model, cfg.conv_kernel_size
+        # a causal conv is padded (k-1, 0) in forward, else (k//2, k//2) here
+        self.causal_pad = k - 1 if cfg.causal_conv else 0
         self.pointwise_conv1 = Dense(d, 2 * d, dtype=cfg.dtype)
-        self.depthwise_conv = Conv1d(
-            d, d, cfg.conv_kernel_size, padding=cfg.conv_kernel_size // 2,
-            groups=d, dtype=cfg.dtype,
-        )
+        self.depthwise_conv = Conv1d(d, d, k, padding=0 if cfg.causal_conv else k // 2,
+                                     groups=d, dtype=cfg.dtype)
         self.batch_norm = conv_norm(cfg)
         self.pointwise_conv2 = Dense(d, d, dtype=cfg.dtype)
 
@@ -342,7 +392,10 @@ class ConformerConvModule(nn.Module):
         a, b = self.pointwise_conv1(x).chunk(2, dim=-1)
         h = a * torch.sigmoid(b)
         h = torch.where(pad_mask[:, :, None], h, 0.0)
-        h = self.depthwise_conv(h.transpose(1, 2))
+        h = h.transpose(1, 2)
+        if self.causal_pad:
+            h = F.pad(h, (self.causal_pad, 0))
+        h = self.depthwise_conv(h)
         h = F.silu(self.batch_norm(h)).transpose(1, 2)
         return self.pointwise_conv2(h)
 

@@ -10,7 +10,11 @@ blank-padded outputs.
 
 ``rnnt_greedy_decode`` is the plain version of the fused decode kernel
 (ops/decode_fused.py): a Python loop over frames whose inner loop stops
-as soon as every row has emitted blank. ``rnnt_greedy_decode_labelsync``
+as soon as every row has emitted blank. It also continues a decode across
+the chunks of an encoder stream (``carry``, ``t_offset``), which the
+streaming recognizer (models/streaming.py:StreamingASR) runs on either
+device, as the JAX package runs it in XLA: the fused kernel, like its
+Pallas counterpart, takes no carry. ``rnnt_greedy_decode_labelsync``
 gives the same output with rounds that scale with the emitted tokens; it
 runs in plain PyTorch on either device (the JAX package runs it in XLA,
 with no Pallas kernel).
@@ -68,22 +72,36 @@ def rnnt_greedy_decode(
     blank: int,
     max_symbols: int = 10,
     max_out: int = 256,
+    carry=None,
+    t_offset: int = 0,
+    return_carry: bool = False,
 ):
-    """Batched greedy transducer decode -> (ids [B, max_out], lens [B])."""
+    """Batched greedy transducer decode -> (ids [B, max_out], lens [B]).
+
+    Streaming continuation: ``carry`` is the value returned with
+    ``return_carry=True`` (-> (ids, lens, carry)) by the previous chunk and
+    ``t_offset`` the absolute frame index of ``f_proj[:, 0]``; the token
+    buffer, last label and prediction-net state continue across chunks,
+    and a frame takes part while ``t_offset + t < frame_lens``, so decoding
+    an encoder stream chunk by chunk equals one decode of the whole."""
     B, T, _ = f_proj.shape
     dev = f_proj.device
     rows = torch.arange(B, device=dev)
     frame_lens = frame_lens.to(dev)
-    out = torch.full((B, max_out), blank, dtype=torch.int32, device=dev)
-    out_len = torch.zeros((B,), dtype=torch.int32, device=dev)
-    last = torch.full((B,), blank, dtype=torch.int32, device=dev)
-    # the prediction-net output for the current last label is cached and
-    # only recomputed after an emission
-    g, state = pred_step(last, init_state)
-    n_frames = int(frame_lens.max()) if B else 0
+    if carry is None:
+        out = torch.full((B, max_out), blank, dtype=torch.int32, device=dev)
+        out_len = torch.zeros((B,), dtype=torch.int32, device=dev)
+        last = torch.full((B,), blank, dtype=torch.int32, device=dev)
+        # the prediction-net output for the current last label is cached
+        # and only recomputed after an emission
+        g, state = pred_step(last, init_state)
+    else:
+        out, out_len, last, g, state = carry
+        out = out.clone()  # the ids returned with the carry stay as they were
+    n_frames = int(frame_lens.max()) - t_offset if B else 0
     for t in range(min(T, n_frames)):
         f_t = f_proj[:, t]
-        cont = t < frame_lens
+        cont = t_offset + t < frame_lens
         k = 0
         while k < max_symbols and bool(cont.any()):
             logits = joint_step(f_t, g, lang_ids)
@@ -98,6 +116,8 @@ def rnnt_greedy_decode(
             state = tree_where(emit, state_new, state)
             cont = cont & emit
             k += 1
+    if return_carry:
+        return out, out_len, (out, out_len, last, g, state)
     return out, out_len
 
 

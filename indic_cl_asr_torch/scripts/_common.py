@@ -14,9 +14,9 @@ Besides the config's leaves every driver takes ``--notes`` and
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
 path, and without a card nothing runs unless it is given). What the port
 does not have yet raises ``NotImplementedError`` naming its ROADMAP item:
-a device mesh other than 1 x 1, ``INDIC_ASR_MULTIHOST=1``,
-``model.causal_conv`` and ``model.global_tokens > 0``. ``model.scan_layers``
-is accepted and ignored: the port has one layer layout.
+a device mesh other than 1 x 1 and ``INDIC_ASR_MULTIHOST=1``.
+``model.scan_layers`` is accepted and ignored: the port has one layer
+layout.
 """
 
 from __future__ import annotations
@@ -138,12 +138,6 @@ def build_tokenizer(cfg, languages, task_data) -> MultilingualTokenizer:
 
 def build_model_cfg(cfg, tokenizer, languages) -> HybridModelConfig:
     m = cfg.model
-    if m.get("causal_conv", False):
-        raise NotImplementedError("model.causal_conv: the causal convolution and "
-                                  "streaming are not ported (ROADMAP §1 item 4)")
-    if m.get("global_tokens", 0) > 0:
-        raise NotImplementedError("model.global_tokens > 0: Longformer attention is not "
-                                  "ported (ROADMAP §1 item 4)")
     dtype = torch.bfloat16 if cfg.get("mixed_precision", True) else torch.float32
     enc = ConformerConfig(
         feat_in=m.get("n_mels", 80),
@@ -154,7 +148,13 @@ def build_model_cfg(cfg, tokenizer, languages) -> HybridModelConfig:
         conv_kernel_size=m.get("conv_kernel_size", 31),
         subsampling_factor=m.get("subsampling_factor", 4),
         frozen_till=m.get("freeze_encoder_till", 12),
+        # left >= 0 and right == 0 with causal_conv: cache-aware streaming
         att_context_size=(m.get("att_context_left", -1), m.get("att_context_right", -1)),
+        causal_conv=m.get("causal_conv", False),
+        # Longformer global tokens (eager attention whatever attn_impl says)
+        global_tokens=m.get("global_tokens", 0),
+        global_tokens_spacing=m.get("global_tokens_spacing", 1),
+        global_attn_separate=m.get("global_attn_separate", False),
         attn_impl=m.get("attn_impl", "xla"),
         dtype=dtype,
     )

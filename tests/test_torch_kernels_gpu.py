@@ -984,3 +984,113 @@ def test_pretrained_layer_norm_tanh_model_on_the_card(cuda, tmp_path):
                 Transcriber(model=model, tokenizer=tok, languages=tok.langs,
                             frontend=FrontendConfig(), greedy_impl="fused")
     assert ids["cuda"] == ids["cpu"] and any(ids["cpu"])
+
+
+def _causal_tiny(attn_impl="flash", **enc):
+    """tests/test_torch_streaming.py's causal config, seeded weights."""
+    import dataclasses
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, att_context_size=(8, 0), causal_conv=True, attn_impl=attn_impl, **enc))
+    model = HybridRNNTCTC(cfg, device="cpu")
+    init_weights_(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.joint.head_bias[:, -1] = 3.0  # the random head emits on some frames
+    return model
+
+
+@pytest.mark.gpu
+def test_streaming_on_the_card_equals_the_cpu(cuda):
+    """The windowed streamer (the flash forward with the (8, 0) band, 2
+    launches a window), the cache-aware streamer and StreamingASR on the
+    card against the same model on the CPU: frames within 1e-4 in f32, the
+    tokens equal."""
+    import copy
+
+    from indic_cl_asr_torch.models import streaming as S
+
+    cpu_model = _causal_tiny()
+    card = copy.deepcopy(cpu_model).to(cuda)
+    g = torch.Generator().manual_seed(3)
+    mel = 2.0 * torch.randn(2, 32, 192, generator=g)
+    out = {}
+    for name, model in (("cpu", cpu_model), ("cuda", card)):
+        flash_relpos_mhsa.launches = 0
+        win = S.stream_full_utterance(
+            S.StreamingEncoder(model, S.StreamingConfig(chunk_mel=32, window_mel=256)), mel)
+        launches = flash_relpos_mhsa.launches
+        cached = S.stream_full_utterance_cached(S.CacheAwareStreamer(model, 32), mel)
+        asr = S.StreamingASR(model, chunk_mel=32, max_symbols=4, max_out=64)
+        state = asr.init(2)
+        for c0 in range(0, 192, 32):
+            valid = torch.tensor([32, max(0, min(32, 150 - c0))], dtype=torch.int32)
+            (ids, lens), state = asr.step(state, mel[:, :, c0:c0 + 32],
+                                          torch.tensor([0, 1], dtype=torch.int32),
+                                          valid_mel=valid)
+        out[name] = (win.cpu(), cached.cpu(), ids.cpu(), lens.cpu(), launches)
+    assert out["cuda"][4] == 2 * (192 // 32 + 1) and out["cpu"][4] == 0
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert (a - b).abs().max().item() <= 1e-4
+    assert torch.equal(out["cuda"][2], out["cpu"][2]) and torch.equal(out["cuda"][3],
+                                                                      out["cpu"][3])
+    assert int(out["cpu"][3].sum()) > 0
+
+
+@pytest.mark.gpu
+def test_longformer_encoder_runs_eager_on_the_card(cuda):
+    """A flash config with global tokens takes the eager attention (no
+    flash launch) and its card output is within 1e-4 of the CPU's in f32."""
+    import copy
+    import dataclasses
+
+    cfg = tiny_config()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, attn_impl="flash", global_tokens=3, global_tokens_spacing=7,
+        global_attn_separate=True, att_context_size=(6, 6)))
+    cpu_model = HybridRNNTCTC(cfg, device="cpu")
+    init_weights_(cpu_model, torch.Generator().manual_seed(1))
+    card = copy.deepcopy(cpu_model).to(cuda)
+    assert card.encoder.attention_route == "xla"
+    g = torch.Generator().manual_seed(4)
+    feats = torch.randn(3, 32, 96, generator=g)
+    lens = torch.tensor([96, 70, 33], dtype=torch.int32)
+    flash_relpos_mhsa.launches = 0
+    with torch.inference_mode():
+        got, _ = card.encode(feats.to(cuda), lens.to(cuda))
+        want, _ = cpu_model.encode(feats, lens)
+    assert flash_relpos_mhsa.launches == 0
+    assert (got.cpu() - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_rnnt_variant_losses_on_the_card_equal_the_cpu(cuda):
+    """The multiblank and TDT losses (plain PyTorch on either device) and
+    their autograd gradients: the card's within rel 1e-5 (losses) and atol
+    2e-5 (gradients) of the CPU's."""
+    from indic_cl_asr_torch.ops import rnnt_variants as V
+
+    g = torch.Generator().manual_seed(5)
+    B, T, U, V1 = 3, 12, 5, 9
+    lp = torch.log_softmax(torch.randn(B, T, U + 1, V1, generator=g), dim=-1)
+    lpd = torch.log_softmax(torch.randn(B, T, U + 1, 4, generator=g), dim=-1)
+    labels = torch.randint(0, V1 - 3, (B, U), generator=g, dtype=torch.int32)
+    t_lens = torch.tensor([12, 9, 2], dtype=torch.int32)
+    u_lens = torch.tensor([5, 3, 0], dtype=torch.int32)
+
+    def run(dev):
+        x = lp.to(dev).requires_grad_()
+        xd = lpd.to(dev).requires_grad_()
+        args = [a.to(dev) for a in (labels, t_lens, u_lens)]
+        mb = V.multiblank_rnnt_loss(x, *args, blank=V1 - 1, big_blank_durations=(2, 4),
+                                    sigma=0.05, reduction="none")
+        tdt = V.tdt_loss(x, xd, *args, blank=V1 - 1, durations=(0, 1, 2, 4), sigma=0.02,
+                         reduction="none")
+        grads = torch.autograd.grad(mb.sum() + tdt.sum(), (x, xd))
+        return [t.detach().cpu() for t in (mb, tdt, *grads)]
+
+    got, want = run(cuda), run("cpu")
+    for a, b in zip(got[:2], want[:2]):
+        assert ((a - b).abs() <= 1e-5 * b.abs().clamp(min=1.0)).all()
+    for a, b in zip(got[2:], want[2:]):
+        assert (a - b).abs().max().item() <= 2e-5

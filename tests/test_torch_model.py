@@ -145,8 +145,8 @@ def test_banded_encoder_matches_jax():
 
 def test_eval_only_and_layout_errors():
     port = HybridRNNTCTC(tiny_config(), device="cpu")
-    with pytest.raises(TypeError):  # options of later slices are not taken
-        dataclasses.replace(port.cfg.encoder, causal_conv=True)
+    with pytest.raises(TypeError):  # one layer layout: no scan_layers option
+        dataclasses.replace(port.cfg.encoder, scan_layers=True)
     assert not port.training  # built for serving
     port.train()
     assert all(m.training for m in port.modules())

@@ -10,6 +10,10 @@ against the JAX package, on the CPU in f32 at ``tiny_config()`` widths
     on the outputs (f32 sums in another order through two layers, the
     batch statistics in train mode; measured up to 1.7e-5) and 1e-5 on the
     statistics;
+  * ``causal_conv`` and the Longformer ``global_tokens`` variants (spacing,
+    separate global projections, with a band, on a flash config, which
+    both packages send to their eager/XLA attention), at the same bars;
+    the global projections load from the scanned layout too;
   * the joint activation "tanh" and "sigmoid": ``step_logits`` and the
     chunked RNNT loss with its gradients, atol 1e-5; ``resolve_decoders``
     on a non-relu joint; one train step with ``rnnt_impl="pallas"`` equal
@@ -30,7 +34,7 @@ from indic_cl_asr_tpu.models.hybrid import init_model
 from indic_cl_asr_tpu.models.hybrid import tiny_config as jax_tiny_config
 from indic_cl_asr_tpu.ops.rnnt_loss_fused import rnnt_loss_fused as jax_rnnt_loss_fused
 from indic_cl_asr_torch.audio.features import FrontendConfig
-from indic_cl_asr_torch.models.conformer import GroupNorm, batch_stats_frozen
+from indic_cl_asr_torch.models.conformer import GroupNorm, attention_route, batch_stats_frozen
 from indic_cl_asr_torch.models.convert import from_jax_variables, jax_state_dict
 from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC, tiny_config
 from indic_cl_asr_torch.ops.rnnt_loss_fused import rnnt_loss_fused
@@ -84,6 +88,14 @@ ENCODER_OPTIONS = {
     "group_norm2": dict(conv_norm_type="group_norm2"),
     "conv_channels_24": dict(subsampling_conv_channels=24),
     "no_xscale": dict(xscale=False),
+    "causal_conv": dict(causal_conv=True),
+    "causal_conv_band": dict(causal_conv=True, att_context_size=(8, 0)),
+    "global_tokens": dict(global_tokens=3),
+    "global_spacing": dict(global_tokens=3, global_tokens_spacing=5),
+    "global_separate": dict(global_tokens=2, global_tokens_spacing=6,
+                            global_attn_separate=True),
+    "global_band": dict(global_tokens=2, global_tokens_spacing=9, att_context_size=(3, 2)),
+    "global_flash": dict(global_tokens=2, global_tokens_spacing=4, attn_impl="flash"),
 }
 
 
@@ -113,6 +125,42 @@ def test_encoder_option_matches_jax(option, train):
         assert "batch_stats" not in var_np  # no running statistics to freeze
         with batch_stats_frozen(port):
             port.encode(torch.from_numpy(feats), torch.from_numpy(lens))
+
+
+def test_global_tokens_take_the_eager_route():
+    """A flash config with global tokens runs the eager attention, resolved
+    at construction (the JAX module sends it to XLA); without them the
+    flash route stays."""
+    for g, route in ((0, "flash"), (2, "xla")):
+        enc = dataclasses.replace(tiny_config().encoder, attn_impl="flash", global_tokens=g)
+        port = HybridRNNTCTC(tiny_config(encoder=enc), device="cpu")
+        assert attention_route(enc) == route == port.encoder.attention_route
+        assert all(layer.self_attn.route == route for layer in port.encoder.layers)
+
+
+def test_global_projections_load_from_the_scanned_layout():
+    """``global_q/k/v`` of a scanned JAX encoder (``stack/layers`` [L, ...])
+    load into the port's layers, and the encoders agree."""
+    opts = dict(global_tokens=2, global_tokens_spacing=3, global_attn_separate=True)
+    jcfg = jax_tiny_config()
+    jcfg = dataclasses.replace(jcfg, encoder=dataclasses.replace(jcfg.encoder, scan_layers=True,
+                                                                 **opts))
+    pcfg = tiny_config()
+    pcfg = dataclasses.replace(pcfg, encoder=dataclasses.replace(pcfg.encoder, **opts))
+    var_np = random_variables(jcfg, np.random.default_rng(8))
+    stack = var_np["params"]["encoder"]["stack"]["layers"]["self_attn"]
+    assert stack["global_q"]["kernel"].shape == (2, 64, 64)
+    port = from_jax_variables(HybridRNNTCTC(pcfg, device="cpu"), var_np)
+    np.testing.assert_array_equal(port.encoder.layers[1].self_attn.global_v.weight.numpy(),
+                                  stack["global_v"]["kernel"][1].T)
+    rng = np.random.default_rng(9)
+    feats = rng.standard_normal((2, 32, 48)).astype(np.float32)
+    lens = np.array([48, 30], np.int32)
+    f_j, _ = jax.jit(lambda v, x, n: HybridRNNTCTC_J(jcfg).apply(v, x, n, False,
+                                                                 method="encode"))(
+        var_np, feats, lens)
+    f_t, _ = port.encode(torch.from_numpy(feats), torch.from_numpy(lens))
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), atol=ENC_ATOL, rtol=0)
 
 
 def test_group_norm_result_depends_on_the_padding():

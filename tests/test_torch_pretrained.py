@@ -174,8 +174,9 @@ def test_model_config_from_nemo_matches_jax(variant, fake_nemo):
         for f in dataclasses.fields(sub_p):
             if f.name not in ("encoder", "dtype", "attn_impl"):
                 assert getattr(sub_p, f.name) == getattr(sub_j, f.name), f.name
-    # the JAX fields the port lacks stay at their defaults
+    # the mapping names no causal conv and no global tokens, in either package
     assert (jcfg.encoder.causal_conv, jcfg.encoder.global_tokens) == (False, 0)
+    assert (pcfg.encoder.causal_conv, pcfg.encoder.global_tokens) == (False, 0)
     assert pcfg.encoder.conv_channels == jcfg.encoder.conv_channels
 
 

@@ -8,8 +8,9 @@ exact:
     annotation and ``--synthetic true``; ``build_tokenizer`` equal
     vocabularies and ids; ``build_model_cfg`` equal fields; ``build_all``
     the JAX trainable mask (mapped through models/convert.py), AdamW
-    hyperparameters, StepConfig, BucketSpec and DriverConfig; what the port
-    lacks raises ``NotImplementedError``;
+    hyperparameters, StepConfig, BucketSpec and DriverConfig (the causal
+    conv and Longformer options included); what the port lacks raises
+    ``NotImplementedError``;
   * checkpoints: JAX partial saves in both encoder layouts (one without
     the frozen layers) through ``load_partial``, the port's own saves
     round-tripped, an unknown name raising;
@@ -195,7 +196,11 @@ class _Vocab:
       "--model.att_context_left", "16", "--model.att_context_right", "0", "--n_langs", "2",
       "--model.freeze_encoder_till", "2", "--model.scan_layers", "false"], None),
     ([], "finetune_config.yaml"),
-], ids=["config", "overrides", "finetune_no_attn_impl"])
+    (["--model.causal_conv", "true", "--model.att_context_left", "70",
+      "--model.att_context_right", "0"], None),
+    (["--model.global_tokens", "4", "--model.global_tokens_spacing", "8",
+      "--model.global_attn_separate", "true"], None),
+], ids=["config", "overrides", "finetune_no_attn_impl", "causal_conv", "global_tokens"])
 def test_build_model_cfg_matches(tmp_path, argv, config):
     jcfg, _, pcfg, _ = _setups(argv, tmp_path / "j", tmp_path / "p", config)
     langs = J.build_languages(jcfg)
@@ -210,9 +215,8 @@ def test_build_model_cfg_matches(tmp_path, argv, config):
 
 @pytest.mark.parametrize("argv,env", [
     (["--mesh.data", "2"], None), (["--mesh.model", "2"], None), (["--mesh.data", "0"], None),
-    ([], "1"), (["--model.causal_conv", "true"], None), (["--model.global_tokens", "4"], None),
-], ids=["mesh_data", "mesh_model", "mesh_all_devices", "multihost", "causal_conv",
-        "global_tokens"])
+    ([], "1"),
+], ids=["mesh_data", "mesh_model", "mesh_all_devices", "multihost"])
 def test_what_the_port_lacks_raises(tmp_path, monkeypatch, argv, env):
     if env:
         monkeypatch.setenv("INDIC_ASR_MULTIHOST", env)
