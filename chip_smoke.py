@@ -196,11 +196,19 @@ Phases, each of which fails the script when it fails:
    one decode). Prints the cache-aware step's ms a chunk at B1 and B16 and
    its real-time factor (a chunk is 0.64 s of audio), the windowed step's
    at B16, in f32 and bf16, and the phase's seconds (``streaming:`` line).
+12. The host side: ``profile_step --steps 3`` (the flagship step's trace:
+   the flash and lattice kernels among its rows, the categories summing to
+   the device self time), ``flops_audit``: each kernel's FLOPs equal to its
+   analytic work at the step's shapes times its launches in each program,
+   ``bench_eval`` (labelsync, fused, beam, beam_fused at B16 x 8 s, 5
+   batches), phase 8's training WAVs assembled in B16 batches by the native
+   loader and by the Python reader in turns (byte-equal, ms a batch), and
+   phase 9's transcripts' WER native against Python (equal).
 
 Prints the card's name and power limit (``nvidia-smi``) on a line of its
 own first, then the full record as one ``record {...}`` line, the
 ``{"kernels": [...]}`` line (each kernel's launches summed over the
-counted runs of phases 4, 6, 8, 9, 10 and 11, the beam's over its own path), and as
+counted runs of phases 4, 6 and 8-12, the beam's over its own path), and as
 its last line ``{"ok": true,
 "device": {...}}``; before them, the end-to-end numbers the fused joint
 moves (the flagship CL step's wall and device-busy ms, idle share and
@@ -286,18 +294,11 @@ def cuda_graph_ms(fn, iters=20):
 def device_ms(fn, kernel, calls=20):
     """The device time a call of ``fn`` spends in kernels whose name holds
     ``kernel`` (torch.profiler), over ``calls`` calls."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from indic_cl_asr_torch.utils.profiling import device_profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and kernel in e.key) / 1e3 / calls
+    kernels = device_profile(lambda: [fn() for _ in range(calls)], host=False)["kernels"]
+    return sum(k["device_ms"] for k in kernels if kernel in k["name"]) / calls
 
 
 def flash_timings(args, **kw):
@@ -885,19 +886,11 @@ def profile_pass(tr, entries, wall_ms, top=12, decoder="rnnt"):
     the counted run): device-busy time (the sum of the kernels' and copies' device
     times on the one stream, against ``wall_ms``, the same pass timed
     without the profiler) and the kernels that take the most of it."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from indic_cl_asr_torch.utils.profiling import device_profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        tr.transcribe(entries, decoder)
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    rows = [{"name": e.key[:90], "calls": e.count,
-             "device_ms": e.self_device_time_total / 1e3} for e in events[:top]]
+    prof = device_profile(lambda: tr.transcribe(entries, decoder), top)
+    busy_ms = prof["device_busy_ms"]
+    rows = [dict(r, name=r["name"][:90]) for r in prof["top"]]
     log(f"  profile (one {decoder} pass, {len(entries)} utts): device busy "
         f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall unprofiled "
         f"(idle share {1 - busy_ms / wall_ms:.3f})")
@@ -1587,33 +1580,23 @@ def profile_step(step, batch, wall_ms, top=14):
     """torch.profiler over one training step: device-busy ms against
     ``wall_ms`` (an unprofiled step), and the kernels that take most."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(batch, torch.Generator().manual_seed(5))
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    rows = [{"name": e.key[:90], "calls": e.count,
-             "device_ms": e.self_device_time_total / 1e3} for e in events[:top]]
-    launches = sum(e.count for e in events)
+    from indic_cl_asr_torch.utils.profiling import device_profile
+
+    prof = device_profile(lambda: step(batch, torch.Generator().manual_seed(5)), top)
+    busy_ms = prof["device_busy_ms"]
+    rows = [dict(r, name=r["name"][:90]) for r in prof["top"]]
     log(f"  profile (one training step): device busy {busy_ms:.3f} ms of "
         f"{wall_ms:.3f} ms wall unprofiled (idle share {1 - busy_ms / wall_ms:.3f}); "
-        f"{launches} device kernels and copies")
+        f"{prof['device_ops']} device kernels and copies")
     for r in rows:
         log(f"    {r['device_ms']:9.3f} ms  {r['calls']:6d}x  {r['name']}")
-    host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
-    host.sort(key=lambda e: e.self_cpu_time_total, reverse=True)
-    host_rows = [{"name": e.key[:60], "calls": e.count,
-                  "host_ms": e.self_cpu_time_total / 1e3} for e in host[:top]]
+    host_rows = [dict(r, name=r["name"][:60]) for r in prof["top_host"]]
     log("  host ops by self time (profiled, so inflated):")
     for r in host_rows:
         log(f"    {r['host_ms']:9.3f} ms  {r['calls']:6d}x  {r['name']}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms, "device_ops": launches, "top": rows,
+            "idle_share": 1 - busy_ms / wall_ms, "device_ops": prof["device_ops"], "top": rows,
             "top_host": host_rows}
 
 
@@ -2221,25 +2204,14 @@ def profile_call(fn, calls=3, tries=3):
     has come back with the port's kernels missing from some calls, which
     a mean over the recorded launches does not feel; one with no more than
     one name is repeated, up to ``tries`` sessions."""
-    import re
+    from indic_cl_asr_torch.utils.profiling import device_profile
 
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    out = {}
     for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-            torch.cuda.synchronize()
         sums = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                name = re.sub(r"^void |\(anonymous namespace\)::|<.*|\(.*", "", e.key).strip()[:60]
-                ms, n = sums.get(name, (0.0, 0))
-                sums[name] = (ms + e.self_device_time_total / 1e3, n + e.count)
+        for k in device_profile(lambda: [fn() for _ in range(calls)], host=False)["kernels"]:
+            name = re.sub(r"^void |\(anonymous namespace\)::|<.*|\(.*", "", k["name"]).strip()[:60]
+            ms, n = sums.get(name, (0.0, 0))
+            sums[name] = (ms + k["device_ms"], n + k["calls"])
         out = {k: (ms / n, n) for k, (ms, n) in sums.items()}
         if len(out) > 1:
             break
@@ -2581,6 +2553,8 @@ def run_cli(dev, rec, tasks, tok, overrides=()):
             want_tr = {"flash_relpos_mhsa": L * batches,
                        "rnnt_greedy_decode_fused": batches if dec == "rnnt" else 0}
             run_hyps = evals[(tuple(e.audio_filepath for e in data[lang].val_clean), dec)]
+            rec.setdefault("cli_texts", {})[f"{lang}_{dec}"] = (
+                [e.text for e in data[lang].val_clean], hyps)
             wers[f"{lang}_{dec}"] = {"transcribe": got, "logged": logged,
                                      "non_empty": sum(bool(h.strip()) for h in hyps),
                                      "texts_as_run": hyps == run_hyps,
@@ -3159,6 +3133,78 @@ def run_streaming(dev, rec, entries, overrides=()):
     return total
 
 
+def run_host_side(dev, rec, tasks, tok):
+    """Phase 12 (the module's docstring says what it checks); the launch counts."""
+    import torch
+
+    from indic_cl_asr_torch.audio.features import FrontendConfig, output_seq_len
+    from indic_cl_asr_torch.audio.io import load_audio
+    from indic_cl_asr_torch.data.pipeline import BucketSpec, _assemble
+    from indic_cl_asr_torch.models.conformer import subsampled_length
+    from indic_cl_asr_torch.models.hybrid import flagship_config
+    from indic_cl_asr_torch.ops import flash_mhsa as fm
+    from indic_cl_asr_torch.ops import rnnt_loss as rl
+    from indic_cl_asr_torch.scripts import bench_eval, flops_audit, profile_step
+    from indic_cl_asr_torch.train.metrics import edit_distance_py, wer
+
+    t_phase, out = time.perf_counter(), rec.setdefault("host_side", {})
+    reset_all_launches()
+    logdir = os.path.join(ROOT, "build", "chip_smoke", f"profile_step-{os.getpid()}")
+    prof = quiet_main(profile_step.main, ["--steps", "3", "--top", "12", "--logdir", logdir,
+                                          "--device", dev.type])[0]
+    names = [r["hlo_op_name"] for r in profile_step._rows(logdir)]
+    cats = {c["category"]: c["us"] for c in prof["by_category"]}
+    out["profile_step"] = prof
+    if not all(any(k in n for n in names) for k in ("flash_relpos_fwd", "flash_relpos_bwd",
+                                                   "alpha_warp", "beta_warp")) or abs(
+            sum(cats.values()) - prof["total_self_time_us"]) > 0.05 * len(cats):
+        raise AssertionError(f"profile_step: kernels {names[:40]}, categories {cats}")
+    audit = quiet_main(flops_audit.main, ["--device", dev.type])[0]
+    mel = int(output_seq_len(torch.tensor(128000), FrontendConfig()))  # 8 s; T pads it to 16
+    T, valid = (int(subsampled_length(torch.tensor(n), flagship_config().encoder))
+                for n in (-(-mel // 16) * 16, mel))
+    lens = torch.full((16,), valid)
+    per = {"flash_relpos_mhsa": (fm.work(16, T, 512, lens)[1], 17),
+           "flash_relpos_mhsa_backward": (fm.work_backward(16, T, 512, lens, 8)[1], 5),
+           "rnnt_alpha": (rl.work(16, T, 49)[1], 1), "rnnt_beta": (rl.work(16, T, 49, True)[1], 1)}
+    for prog, p in audit["programs"].items():
+        for name, (flops, n) in per.items():
+            k, n = p["kernels"].get(name, {"calls": 0, "flops": 0}), n * (
+                prog != "loss_fwd" or name in ("flash_relpos_mhsa", "rnnt_alpha"))
+            if not k["calls"] == p["launches"][name] == n or k["flops"] != n * flops:
+                raise AssertionError(f"flops_audit {prog} {name}: {k}, {p['launches']}")
+    out["flops_audit"], tflops = audit, {k: v for k, v in audit.items() if k.endswith("tflops")}
+    log(f"  profile_step: {prof['total_self_time_us'] / 1e3:.2f} ms device of {prof['wall_ms']:.2f}"
+        f" ms, idle {prof['idle_share']:.3f}, {cats}; flops_audit {tflops}")
+    decoders = ["labelsync", "fused", "beam", "beam_fused"]
+    bench = quiet_main(bench_eval.main, ["--decoders", ",".join(decoders), "--iters", "5",
+                                         "--device", dev.type])[0]
+    if [b["decoder"] for b in bench] != decoders or not all(b["value"] > 0 for b in bench):
+        raise AssertionError(f"bench_eval: {bench}")
+    out["bench_eval"], launches = bench, all_launches()
+    # phase 8's WAVs: the native batch decode against the Python reader, in turns
+    spec, ms = BucketSpec(), {"native": [], "python": []}
+    for entries in (tasks[lang].train[i:i + 16] for lang in CL_LANGS for i in (0, 16)):
+        for how, loader in (("native", load_audio), ("python", lambda p: load_audio(p))) * 3:
+            t0 = time.perf_counter()
+            b = _assemble(entries, 16, 1, spec, tok, {l: 0 for l in CL_LANGS}, 0, loader, None)
+            ms[how].append((time.perf_counter() - t0) * 1e3)
+            got = (b.audio.tobytes(), b.audio_len.tobytes())
+            want = got if how == "native" else want
+            if got != want:
+                raise AssertionError("the native batch differs from the Python reader's")
+    out["assemble_ms_b16"] = ms
+    wers = {k: (wer(refs, hyps), sum(edit_distance_py(h.split(), r.split())
+                                     for r, h in zip(refs, hyps)) / sum(len(r.split()) for r in refs))
+            for k, (refs, hyps) in rec.pop("cli_texts").items()}
+    if not all(a == b for a, b in wers.values()):
+        raise AssertionError(f"native WER against the Python WER: {wers}")
+    out["wer_native_python"], out["phase_s"] = wers, time.perf_counter() - t_phase
+    log(f"  bench_eval {bench}; B16 assembly ms native {ms['native']}, python {ms['python']}; "
+        f"WER native and Python {wers}; {out['phase_s']:.1f} s")
+    return launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3183,13 +3229,13 @@ def main() -> int:
     card = nvidia_smi()
     rec = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
     print(card, flush=True)
-    log(f"[1/11] device: {torch.cuda.get_device_name(0)} | "
+    log(f"[1/12] device: {torch.cuda.get_device_name(0)} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     secs = _build.build()
     rec["build_s"] = time.perf_counter() - t0
-    log(f"[2/11] build: {rec['build_s']:.1f} s {secs}")
+    log(f"[2/12] build: {rec['build_s']:.1f} s {secs}")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -3209,7 +3255,7 @@ def main() -> int:
         f"{rec['flash_backward_build']['dynamic_shared_bytes']}; the scalar kernel (f32, "
         f"and bf16 at D128): ptxas {rec['flash_backward_build']['scalar_ptxas']}")
 
-    log("[3/11] kernels vs plain versions on the card")
+    log("[3/12] kernels vs plain versions on the card")
     check_flash(dev, rec)
     check_decode(dev, rec)
     check_beam(dev, rec)
@@ -3218,39 +3264,42 @@ def main() -> int:
     check_head_dim_route(dev, rec)
     check_joint(dev, rec)
 
-    log("[4/11] serving slice (flagship width, seeded random weights)")
+    log("[4/12] serving slice (flagship width, seeded random weights)")
     inputs, launches, decode_work, data = run_slice(dev, rec)
 
-    log("[5/11] timing at the serving path's shapes")
+    log("[5/12] timing at the serving path's shapes")
     kernels = time_kernels(inputs, launches, decode_work, rec)
     del inputs
     torch.cuda.empty_cache()
 
-    log("[6/11] training slice (flagship width, bf16, layers 0-11 frozen)")
+    log("[6/12] training slice (flagship width, bf16, layers 0-11 frozen)")
     train_launches, captured, host_batch = run_training(dev, rec, *data)
     kernels += time_training_kernels(captured, train_launches, rec)
     del captured
     torch.cuda.empty_cache()
 
-    log("[7/11] f32 step equality, card kernels vs CPU plain versions")
+    log("[7/12] f32 step equality, card kernels vs CPU plain versions")
     for impl in ("xla", "pallas"):
         check_step_f32(dev, rec, host_batch, rnnt_impl=impl)
 
-    log("[8/11] CL sequence (flagship width, rnnt_impl='pallas'; naive, EWC, MAS, LwF)")
+    log("[8/12] CL sequence (flagship width, rnnt_impl='pallas'; naive, EWC, MAS, LwF)")
     tasks, tok = make_cl_data(os.path.join(ROOT, "build", "chip_smoke", "cl", "wavs"))
     kernels += run_cl(dev, rec, tasks, tok)
 
-    log("[9/11] the command line (config.yaml's flagship, --n_langs 2): cl_baseline, "
+    log("[9/12] the command line (config.yaml's flagship, --n_langs 2): cl_baseline, "
         "transcribe, results")
     rec["cli_launches"] = run_cli(dev, rec, tasks, tok)
 
-    log("[10/11] the pretrained path: a .nemo of phase 4's flagship in f32, "
+    log("[10/12] the pretrained path: a .nemo of phase 4's flagship in f32, "
         "restore_pretrained, transcribe --nemo, eval_pretrained")
     rec["pretrained_launches"], f32 = run_pretrained(dev, rec, *data)
 
-    log("[11/11] the streaming path (flagship width and depth, causal conv, "
+    log("[11/12] the streaming path (flagship width and depth, causal conv, "
         "att_context (70, 0), f32): cache-aware, windowed, StreamingASR, stream_demo")
     rec["streaming_launches"] = run_streaming(dev, rec, data[0])
+
+    log("[12/12] the host side: profile_step, flops_audit, bench_eval, the native loader and WER")
+    rec["host_launches"] = run_host_side(dev, rec, tasks, tok)
     order = ["flash_relpos_mhsa", "flash_relpos_mhsa_backward", "rnnt_alpha",
              "rnnt_beta", "joint_fused_forward", "joint_fused_backward",
              "rnnt_greedy_decode_fused", "rnnt_beam_search_fused"]
@@ -3258,10 +3307,10 @@ def main() -> int:
     # each kernel's launches over the main path's counted runs: the serving
     # slice (phase 4; the beam's from its own path), the training steps
     # (phase 6), the CL sequence (phase 8), the command line (phase 9), the
-    # pretrained path (phase 10) and the streaming path (phase 11)
+    # pretrained path (phase 10), the streaming path (phase 11) and the host side (12)
     phases = {"serving": launches, "training": train_launches, "cl": rec["cl_launches"],
               "cli": rec["cli_launches"], "pretrained": rec["pretrained_launches"],
-              "streaming": rec["streaming_launches"]}
+              "streaming": rec["streaming_launches"], "host": rec["host_launches"]}
     rec["main_path_launches"] = {}
     for line in kernels:
         by = {ph: c.get(line["name"], 0) for ph, c in phases.items()}

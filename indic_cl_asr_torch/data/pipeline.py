@@ -6,7 +6,9 @@ padded shape, and the final partial batch of a bucket is padded by
 repeating its last entry (``n_real`` marks the real rows).
 ``BatchPipeline`` plans an epoch exactly as the JAX package does (the same
 numpy shuffles for the same seed), assembles batches in a producer thread
-with a pool of audio readers, and keeps ``prefetch`` batches ready.
+with a pool of audio readers, and keeps ``prefetch`` batches ready. A
+batch of WAV files read by ``load_audio`` is decoded in one threaded call
+of the native host library (``utils/native.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Callable, Iterator, Sequence
 import numpy as np
 
 from ..audio.io import load_audio
+from ..utils.native import load_wav_batch_native
 from .manifest import ManifestEntry
 
 
@@ -83,15 +86,26 @@ def _assemble(
     lang_ids = np.zeros((B,), np.int32)
 
     paths = [e.audio_filepath for e in entries]
-    if io_pool is not None:
+    wavs = None
+    if loader is load_audio and all(p.lower().endswith(".wav") for p in paths):
+        # the whole batch in one threaded C++ call, straight into its buffer;
+        # a file that call cannot read (length -1) sends the batch to the
+        # Python reader, which reads more formats or says what is wrong
+        native, native_lens = load_wav_batch_native(paths, S)
+        if (native_lens >= 0).all():
+            audio, audio_len[:] = native, native_lens
+        else:
+            wavs = [loader(p) for p in paths]
+    elif io_pool is not None:
         wavs = list(io_pool.map(loader, paths))
     else:
         wavs = [loader(p) for p in paths]
 
-    for i, (e, wav) in enumerate(zip(entries, wavs)):
-        n = min(len(wav), S)
-        audio[i, :n] = wav[:n]
-        audio_len[i] = n
+    for i, e in enumerate(entries):
+        if wavs is not None:
+            n = min(len(wavs[i]), S)
+            audio[i, :n] = wavs[i][:n]
+            audio_len[i] = n
         ids = tokenizer.text_to_ids(e.text, e.lang) if e.text else []
         ids = ids[:U]
         tokens[i, : len(ids)] = ids

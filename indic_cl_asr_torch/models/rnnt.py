@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import counted_call
 from .common import JOINT_ACTIVATIONS, Dense, activate, cast, dropout
 
 
@@ -69,6 +70,15 @@ class JointConfig:
         return self.vocab_per_lang
 
 
+def lstm_work(B: int, U: int, D: int, H: int, itemsize: int) -> tuple[int, int]:
+    """(bytes, flops) of one LSTM layer over U steps: x, the weights and
+    the outputs moved once; the input and recurrent products, 2·B·U·(D +
+    H)·4H FLOPs (the gate math is elementwise). Its backward counts twice
+    as much (the products for the inputs' and the weights' gradients)."""
+    nbytes = (B * U * D + (D + H + 1) * 4 * H + B * U * H) * itemsize
+    return nbytes, 2 * B * U * (D + H) * 4 * H
+
+
 class LSTM(nn.Module):
     """One LSTM layer in the JAX layout (so weights load as they are)."""
 
@@ -87,21 +97,32 @@ class LSTM(nn.Module):
         return self.steps(x, h0, c0)
 
     def sequence(self, x):
-        """The whole sequence from the zero state in one ``torch.lstm``."""
-        B, U, _ = x.shape
+        """The whole sequence from the zero state in one ``torch.lstm``
+        (counted by ``lstm_work`` in a FLOP audit, which does not see
+        cuDNN's call on the card)."""
+        B, U, D = x.shape
         dt = self.dtype
         zeros = torch.zeros((1, B, self.hidden), dtype=dt, device=x.device)
-        weights = [self.w_ih.t().to(dt).contiguous(), self.w_hh.t().to(dt).contiguous(),
-                   self.bias.to(dt), torch.zeros_like(self.bias, dtype=dt)]
-        with warnings.catch_warnings():
-            # cuDNN packs these (a few MB) into its own buffer on every call
-            # and says so; the module holds no flat buffer of its own
-            warnings.filterwarnings("ignore", "RNN module weights are not part")
-            # with no dropout inside the LSTM, ``train`` only tells cuDNN to
-            # keep what its backward needs: an eval-mode net that takes
-            # gradients (MAS's surrogate) needs it too
-            out, h, c = torch.lstm(x.to(dt), (zeros, zeros), weights, True, 1, 0.0,
-                                   self.training or torch.is_grad_enabled(), False, True)
+        zero_b = torch.zeros_like(self.bias, dtype=dt)
+        # with no dropout inside the LSTM, ``train`` only tells cuDNN to
+        # keep what its backward needs: an eval-mode net that takes
+        # gradients (MAS's surrogate) needs it too
+        train = self.training or torch.is_grad_enabled()
+
+        def run(x, w_ih, w_hh, bias):
+            with warnings.catch_warnings():
+                # cuDNN packs these (a few MB) into its own buffer on every
+                # call and says so; the module holds no flat buffer of its own
+                warnings.filterwarnings("ignore", "RNN module weights are not part")
+                return torch.lstm(x, (zeros, zeros), [w_ih, w_hh, bias, zero_b], True, 1,
+                                  0.0, train, False, True)
+
+        size = torch.finfo(dt).bits // 8
+        nbytes, flops = lstm_work(B, U, D, self.hidden, size)
+        out, h, c = counted_call(
+            run, (x.to(dt), self.w_ih.t().to(dt).contiguous(),
+                  self.w_hh.t().to(dt).contiguous(), self.bias.to(dt)),
+            ("lstm", lambda: (nbytes, flops)), ("lstm_backward", lambda: (2 * nbytes, 2 * flops)))
         return out, (h[0], c[0].to(torch.float32))
 
     def steps(self, x, h0=None, c0=None):

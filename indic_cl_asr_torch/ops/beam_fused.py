@@ -41,11 +41,11 @@ step adds the L2 draw of the block's 1/CLUSTER of W_ih, W_hh and W_p
 barriers; both far above the bytes bound of the launch.
 
 As for the greedy kernel: the joint activation is relu and the
-prediction net has one LSTM layer. The TPU kernel's VMEM model
-(``fits_fused_beam``) has no counterpart; the card's limit is the shared
-memory of one block (the replicated hypotheses, the exchange slots, the
-partial sums), which the launch asks for with ``cudaFuncSetAttribute``,
-and the wrapper raises on its error.
+prediction net has one LSTM layer. ``fits`` stands where the TPU kernel's
+``fits_fused_beam`` does; its VMEM model has no counterpart: the card's
+limit is the shared memory of one block (the replicated hypotheses, the
+exchange slots, the partial sums), which the launch asks for with
+``cudaFuncSetAttribute``, and the wrapper raises on its error.
 """
 
 from __future__ import annotations
@@ -63,6 +63,19 @@ from .decode_fused import _DTYPES, cluster_split, extract_decode_weights
 # in flight without spilling (csrc/beam_fused.cu)
 THREADS = 256
 CLUSTER = 8  # blocks per row: the portable maximum of a thread-block cluster
+
+
+def fits(beam_size: int, topk: int | None, V1: int, pred_hidden: int, joint_hidden: int,
+         dtype: torch.dtype) -> bool:
+    """Whether the kernel takes this search on a model of these widths: a
+    beam of 1-8 (a warp a hypothesis), a top-K (``None``: the beam size) of
+    1 to min(16, V+1) and the greedy kernel's widths
+    (``decode_fused.fits``). The wrapper raises wherever this is false,
+    and ``train/eval.py:resolve_decoders`` sends such a search to the
+    batched beam, as the JAX package's ``fits_fused_beam`` does."""
+    P = beam_size if topk is None else topk
+    return (1 <= beam_size <= 8 and 1 <= P <= min(16, V1)
+            and decode_fused.fits(pred_hidden, joint_hidden, dtype))
 
 
 def rnnt_beam_search_fused_reference(
@@ -151,13 +164,12 @@ def rnnt_beam_search_fused(
     V, Hp = w["table"].shape
     L, V1 = w["head_b"].shape
     P = topk if topk is not None else beam_size
-    vec = 16 // (torch.finfo(dt).bits // 8)
-    if Hp % vec or Hj % vec:
+    if not fits(beam_size, topk, V1, Hp, Hj, dt):
         raise ValueError(
-            f"pred width {Hp} and joint width {Hj} must be multiples of {vec}"
-        )
-    if not 1 <= beam_size <= 8 or not 1 <= P <= min(16, V1):
-        raise ValueError(f"fused beam takes beam_size 1-8 and topk 1-16, got {beam_size}, {P}")
+            f"fused beam takes beam_size 1-8, topk 1-min(16, V+1 = {V1}) and pred and "
+            f"joint widths of whole 16-byte groups; got beam_size {beam_size}, topk {P}, "
+            f"widths {Hp}, {Hj} in {dt}")
+    vec = 16 // (torch.finfo(dt).bits // 8)
     dev = f_proj.device
     if w["table"].device != dev:
         raise ValueError(f"the model is on {w['table'].device}, f_proj on {dev}")

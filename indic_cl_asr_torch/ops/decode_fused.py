@@ -39,13 +39,15 @@ of the whole launch.
 
 The joint activation is relu and the prediction net has one LSTM layer,
 as in the flagship; ``extract_decode_weights`` raises on any other model
-(``train/eval.py:resolve_decoders`` sends those to label-looping). The TPU kernel's VMEM budget (``decode_vmem_bytes`` /
-``fits_fused_decode``) has no counterpart here: f_proj and the weights
-stay in device memory and L2, and only the decode state lives in shared
-memory. The card's own limits are the shared memory one block may use
-and the cluster that must fit one GPC; the launch asks for them
-(``cudaFuncSetAttribute``, ``cudaLaunchKernelEx``), which fail over the
-limit, and the wrapper raises on that error.
+(``train/eval.py:resolve_decoders`` sends those to label-looping).
+``fits`` is the counterpart of the TPU kernel's ``fits_fused_decode``:
+the widths must be whole 16-byte groups. Its VMEM budget has no
+counterpart: f_proj and the weights stay in device memory and L2, and
+only the decode state lives in shared memory. The card's own limits are
+the shared memory one block may use and the cluster that must fit one
+GPC; the launch asks for them (``cudaFuncSetAttribute``,
+``cudaLaunchKernelEx``), which fail over the limit, and the wrapper
+raises on that error.
 """
 
 from __future__ import annotations
@@ -65,6 +67,21 @@ CLUSTER = 8    # blocks per row: the portable maximum of a thread-block cluster
 
 def _pad8(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def fits(pred_hidden: int, joint_hidden: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes these widths in this compute dtype: f32 or
+    bf16, the prediction and joint widths whole 16-byte groups (the
+    mat-vecs load 16 bytes a lane, and ``cluster_split`` deals the units
+    out in such groups). The wrapper raises wherever this is false, and
+    ``train/eval.py:resolve_decoders`` sends such a model to label-looping.
+    The shared memory a block needs (``shared_memory_bytes``) is asked of
+    the built library, so a width over that limit is refused by the card
+    at launch, where the wrapper raises its error."""
+    if dtype not in _DTYPES:
+        return False
+    vec = 16 // (torch.finfo(dtype).bits // 8)
+    return pred_hidden % vec == 0 and joint_hidden % vec == 0
 
 
 def cluster_split(Hp: int, Hj: int, V1p: int, vec: int, C: int) -> dict:
@@ -194,11 +211,11 @@ def rnnt_greedy_decode_fused(
     B, T, Hj = f_proj.shape
     V, Hp = w["table"].shape
     L, V1 = w["head_b"].shape
-    vec = 16 // (torch.finfo(dt).bits // 8)
-    if Hp % vec or Hj % vec:
+    if not fits(Hp, Hj, dt):
         raise ValueError(
-            f"pred width {Hp} and joint width {Hj} must be multiples of {vec}"
+            f"pred width {Hp} and joint width {Hj} must be whole 16-byte groups in {dt}"
         )
+    vec = 16 // (torch.finfo(dt).bits // 8)
     dev = f_proj.device
     if w["table"].device != dev:
         raise ValueError(f"the model is on {w['table'].device}, f_proj on {dev}")

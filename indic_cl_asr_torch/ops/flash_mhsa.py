@@ -55,6 +55,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import counted_call, record_work
 from . import _build
 
 _NEG = -1e30
@@ -286,7 +287,10 @@ def flash_relpos_mhsa_backward(
     if q.device.type != "cuda":
         raise ValueError("flash_relpos_mhsa_backward launches the CUDA kernel; "
                          "on the CPU use autograd through the plain version")
-    D = q.shape[-1] // n_heads
+    B, T, E = q.shape
+    D = E // n_heads
+    record_work("flash_relpos_mhsa_backward", lambda: work_backward(
+        B, T, E, lens, n_heads, left, right, itemsize=q.element_size()))
     if kernel_head_dim(D) == D:
         return _launch_bwd(q, k, v, p, bias_u, bias_v, lens, lse, dout, n_heads, left,
                            right, dropout_rate, seed)
@@ -365,7 +369,10 @@ def _forward(q, k, v, p, bias_u, bias_v, lens, n_heads, left, right, dropout_rat
     """The forward kernel at any head dim up to 128: heads the kernels are
     not built for run zero-padded at the unpadded scale and the output is
     sliced back (the row statistics ``lse`` are the unpadded heads')."""
-    D = q.shape[-1] // n_heads
+    B, T, E = q.shape
+    D = E // n_heads
+    record_work("flash_relpos_mhsa",
+                lambda: work(B, T, E, lens, left, right, itemsize=q.element_size()))
     if kernel_head_dim(D) == D:
         return _launch_fwd(q, k, v, p, bias_u, bias_v, lens, n_heads, left, right,
                            dropout_rate, seed, need_lse)
@@ -423,9 +430,16 @@ def flash_relpos_mhsa(
     _check(q, k, v, p, n_heads)
     _drop_args(dropout_rate, seed)
     if q.device.type == "cpu":
-        return flash_relpos_mhsa_reference(
-            q, k, v, p, bias_u, bias_v, lens, n_heads=n_heads, left=left,
-            right=right, dropout_rate=dropout_rate, seed=seed,
+        B, T, E = q.shape
+        size = q.element_size()
+        return counted_call(
+            lambda *t: flash_relpos_mhsa_reference(
+                *t, lens, n_heads=n_heads, left=left, right=right,
+                dropout_rate=dropout_rate, seed=seed),
+            (q, k, v, p, bias_u, bias_v),
+            ("flash_relpos_mhsa", lambda: work(B, T, E, lens, left, right, itemsize=size)),
+            ("flash_relpos_mhsa_backward",
+             lambda: work_backward(B, T, E, lens, n_heads, left, right, itemsize=size)),
         )
     args = (q, k, v, p, bias_u, bias_v, lens, n_heads, int(left), int(right),
             float(dropout_rate), int(seed))

@@ -32,6 +32,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import counted_call, record_work
 from . import _build
 
 NEG_INF = -1e30  # large-but-finite to keep arithmetic NaN-free
@@ -159,9 +160,10 @@ def rnnt_alpha(lpb: torch.Tensor, lpl: torch.Tensor) -> torch.Tensor:
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     _check_slabs(lpb, lpl)
-    if lpb.device.type == "cpu":
-        return _alpha_scan(lpb, lpl)
     B, T, U1 = lpb.shape
+    if lpb.device.type == "cpu":
+        return counted_call(_alpha_scan, (lpb, lpl), ("rnnt_alpha", lambda: work(B, T, U1)), None)
+    record_work("rnnt_alpha", lambda: work(B, T, U1))
     lpb, lpl = lpb.contiguous(), lpl.contiguous()
     alpha = torch.empty_like(lpb)
     lib = _build.load("rnnt_lattice")
@@ -180,9 +182,11 @@ def rnnt_beta(lpb: torch.Tensor, lpl: torch.Tensor, u_lens: torch.Tensor) -> tor
     CPU tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
     _check_slabs(lpb, lpl)
-    if lpb.device.type == "cpu":
-        return _beta_scan(lpb, lpl, u_lens)
     B, T, U1 = lpb.shape
+    if lpb.device.type == "cpu":
+        return counted_call(_beta_scan, (lpb, lpl, u_lens),
+                            ("rnnt_beta", lambda: work(B, T, U1, beta=True)), None)
+    record_work("rnnt_beta", lambda: work(B, T, U1, beta=True))
     lpb, lpl = lpb.contiguous(), lpl.contiguous()
     ul = u_lens.to(device=lpb.device, dtype=torch.int32).contiguous()
     beta = torch.empty((B, T + 1, U1), dtype=torch.float32, device=lpb.device)

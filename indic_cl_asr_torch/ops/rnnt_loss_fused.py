@@ -21,8 +21,9 @@ of f32 sums.
 
 ``uniform_head`` (every row trains the same language) uses row 0's head
 for the whole batch. ``remat``: ``"none"`` keeps each chunk's residuals
-for the backward (the JAX package's fallback to "full" above 4 GB of them
-is not ported: a flagship step keeps ~1.2 GB); ``"full"`` recomputes each
+for the backward, unless their estimate B·T_pad·(U+1)·(H·itemsize +
+4·(V+1)) exceeds ``RNNT_REMAT_NONE_LIMIT_GB`` (default 4): then it warns
+and takes ``"full"``, as the JAX package does; ``"full"`` recomputes each
 chunk in the backward (``torch.utils.checkpoint``), reusing the forward's
 dropout mask, which is drawn once per chunk outside the checkpointed
 function (the JAX package
@@ -40,6 +41,7 @@ apply to it and warns, as in the JAX package.
 
 from __future__ import annotations
 
+import os
 import warnings
 
 import torch
@@ -197,6 +199,23 @@ def rnnt_loss_fused(
     T_pad = n_chunks * chunk_size
     if T_pad != T:
         f_proj = F.pad(f_proj, (0, 0, 0, T_pad - T))
+    if remat == "none":
+        # with no recompute the backward keeps the activated joint input
+        # [B, T, U+1, H] and the f32 logits [B, T, U+1, V+1] of every chunk:
+        # above the limit the chunked joint's bounded memory is kept instead
+        V1 = head_b.shape[-1]
+        resid_gb = B * T_pad * U1 * (H * f_proj.dtype.itemsize + V1 * 4) / 2**30
+        limit_gb = float(os.environ.get("RNNT_REMAT_NONE_LIMIT_GB", "4"))
+        if resid_gb > limit_gb:
+            warnings.warn(
+                f"rnnt_remat='none' would keep ~{resid_gb:.1f} GB of "
+                f"joint residuals live (B={B}, T={T_pad}, U+1={U1}, "
+                f"V+1={V1}) > {limit_gb:.0f} GB limit; falling back to "
+                "'full' chunk remat. Raise RNNT_REMAT_NONE_LIMIT_GB to "
+                "override.",
+                stacklevel=2,
+            )
+            remat = "full"
     drop = dropout_rate > 0.0 and generator is not None
     kw = dict(blank=blank, dropout_rate=dropout_rate, uniform_head=uniform_head,
               activation=activation, save_logits=remat == "save_logits")

@@ -9,9 +9,10 @@ Metric names match the reference
 (``{val|test}/perf_{lang}_{rnnt|ctc}_{wer|noisy_wer|avg_wer}``).
 
 ``greedy_impl``: ``"auto"`` picks the fused kernel on a CUDA model with a
-single-layer LSTM and the relu joint, label-looping on any other CUDA
-model (a deeper prediction net, a tanh or sigmoid joint), and frame-sync
-on the CPU (``resolve_decoders``);
+single-layer LSTM, the relu joint and widths the kernel takes
+(``ops/decode_fused.fits``), label-looping on any other CUDA model (a
+deeper prediction net, a tanh or sigmoid joint, widths that are not whole
+16-byte groups), and frame-sync on the CPU (``resolve_decoders``);
 ``"fused"`` forces the kernel wrapper (on the CPU it runs its plain
 version); ``"framesync"`` that plain version, a batched Python-loop
 decoder, on any device; ``"labelsync"`` the label-looping decoder
@@ -20,12 +21,13 @@ kernel picks each row's own language head, so a mixed-language batch
 takes it too.
 
 ``beam_impl`` (decoder ``"rnnt_beam"``): ``"auto"`` picks the fused beam
-kernel on a CUDA model with a single-layer LSTM and the relu joint, and
-the batched beam otherwise (``"xla"``, the JAX package's name for it);
+kernel on a CUDA model where the greedy kernel's conditions hold and the
+kernel takes the beam size (``ops/beam_fused.fits``: 1-8), and the
+batched beam otherwise (``"xla"``, the JAX package's name for it);
 ``"fused"`` forces the kernel wrapper. Both take ``max_symbols`` as their
-expansion rounds per frame. The fused kernels take a single-layer LSTM
-prediction net and the relu joint: an explicit ``"fused"`` on a deeper
-prediction net or another joint activation raises at construction. ``"rnnt_beam_host"`` (the per-utterance Graves beam
+expansion rounds per frame. An explicit ``"fused"`` that its kernel would
+refuse (a deeper prediction net, another joint activation, such widths
+or beam size) raises at construction. ``"rnnt_beam_host"`` (the per-utterance Graves beam
 on the encoder's projections) and ``"ctc_beam"`` (prefix beam search on
 the CTC log-probs) run on the host, one real row at a time.
 """
@@ -44,6 +46,7 @@ from ..audio.features import FrontendConfig, log_mel_spectrogram
 from ..audio.io import load_audio
 from ..data.manifest import ManifestEntry
 from ..data.pipeline import BucketSpec, _assemble
+from ..ops import beam_fused, decode_fused
 from ..ops.beam_fused import rnnt_beam_search_fused, rnnt_beam_search_fused_reference
 from ..ops.beam_search import ctc_prefix_beam_search, rnnt_beam_search
 from ..ops.decode_fused import (
@@ -57,18 +60,47 @@ DECODERS = ("rnnt", "ctc", "rnnt_beam", "rnnt_beam_host", "ctc_beam")
 
 
 def resolve_decoders(greedy_impl: str, beam_impl: str, device: torch.device,
-                     pred_rnn_layers: int, joint_activation: str = "relu") -> tuple[str, str]:
-    """``"auto"`` greedy and beam choices from the device and the model's
-    config, as the JAX package makes them: the fused kernels on a CUDA
-    model with a single-layer LSTM and the relu joint; label-looping greedy
-    and the batched ("xla") beam on any other CUDA model (a deeper
-    prediction net, a tanh or sigmoid joint); frame-sync greedy and the
-    batched beam on the CPU. Other values pass through."""
-    fused = device.type == "cuda" and pred_rnn_layers == 1 and joint_activation == "relu"
+                     pred_rnn_layers: int, joint_activation: str = "relu", *,
+                     beam_size: int = 4, topk: int | None = None,
+                     dtype: torch.dtype = torch.float32, pred_hidden: int = 640,
+                     joint_hidden: int = 640, n_classes: int = 257) -> tuple[str, str]:
+    """``"auto"`` greedy and beam choices from the device, the model's
+    config and the search, as the JAX package makes them: on a CUDA model
+    each fused kernel where it takes the model and the search (a
+    single-layer LSTM, the relu joint, and what ``ops/decode_fused.fits``
+    and ``ops/beam_fused.fits`` allow: the widths in ``dtype``, the beam
+    size and top-K against ``n_classes`` = V+1), label-looping greedy and
+    the batched ("xla") beam wherever it does not; frame-sync greedy and
+    the batched beam on the CPU. Other values pass through, and an
+    explicit ``"fused"`` the kernel would refuse raises ``ValueError``."""
+    cuda = device.type == "cuda"
+    greedy_fits = decode_fused.fits(pred_hidden, joint_hidden, dtype)
+    beam_fits = beam_fused.fits(beam_size, topk, n_classes, pred_hidden, joint_hidden, dtype)
+    model_fits = pred_rnn_layers == 1 and joint_activation == "relu"
     if greedy_impl == "auto":
-        greedy_impl = ("fused" if fused else "labelsync") if device.type == "cuda" else "framesync"
+        greedy_impl = ("fused" if model_fits and greedy_fits else "labelsync") if cuda else "framesync"
     if beam_impl == "auto":
-        beam_impl = "fused" if fused else "xla"
+        beam_impl = "fused" if cuda and model_fits and beam_fits else "xla"
+    for what, impl, fits, other in (("greedy", greedy_impl, greedy_fits, "labelsync"),
+                                    ("beam", beam_impl, beam_fits, "xla")):
+        if impl != "fused":
+            continue
+        if pred_rnn_layers != 1:
+            raise ValueError(
+                f"the fused {what} takes a single-layer LSTM, the model has "
+                f"{pred_rnn_layers}: use {what}_impl=\"{other}\""
+            )
+        if joint_activation != "relu":
+            raise ValueError(
+                f"the fused {what} takes the relu joint, the model's is "
+                f"{joint_activation!r}: use {what}_impl=\"{other}\""
+            )
+        if not fits:
+            raise ValueError(
+                f"the fused {what} refuses widths {pred_hidden}, {joint_hidden} in {dtype} "
+                f"(beam_size {beam_size}, topk {topk}, {n_classes} classes): "
+                f"use {what}_impl=\"{other}\""
+            )
     return greedy_impl, beam_impl
 
 
@@ -94,24 +126,14 @@ class Transcriber:
         self.device = self.model.device
         self.greedy_impl, self.beam_impl = resolve_decoders(
             self.greedy_impl, self.beam_impl, self.device, cfg.pred_rnn_layers,
-            cfg.joint_activation,
+            cfg.joint_activation, beam_size=self.beam_size, dtype=cfg.dtype,
+            pred_hidden=cfg.pred_hidden, joint_hidden=cfg.joint_hidden,
+            n_classes=cfg.vocab_per_lang + 1,
         )
         if self.greedy_impl not in ("fused", "framesync", "labelsync"):
             raise ValueError(f"greedy_impl={self.greedy_impl!r}")
         if self.beam_impl not in ("fused", "xla"):
             raise ValueError(f"beam_impl={self.beam_impl!r}")
-        for what, impl, other in (("greedy", self.greedy_impl, "labelsync"),
-                                  ("beam", self.beam_impl, "xla")):
-            if impl == "fused" and cfg.pred_rnn_layers != 1:
-                raise ValueError(
-                    f"the fused {what} takes a single-layer LSTM, the model has "
-                    f"{cfg.pred_rnn_layers}: use {what}_impl=\"{other}\""
-                )
-            if impl == "fused" and cfg.joint_activation != "relu":
-                raise ValueError(
-                    f"the fused {what} takes the relu joint, the model's is "
-                    f"{cfg.joint_activation!r}: use {what}_impl=\"{other}\""
-                )
         if self.frontend.n_mels != cfg.encoder.feat_in:
             raise ValueError("front-end mel bins must match encoder feat_in")
         # batches encoded, and batches run per decoder

@@ -9,11 +9,16 @@ indic_cl_asr_tpu/train/metrics.py).
     bwt(i, t) = P[i, i] - P[t, i] for t > i (utils.py:192-209
     `compute_bwt_new`); scalar per-task BWT =
     sum_{i<t}(P[i][i] - P[t][i]) / max(t, 1) (results.py:385-392).
+
+``edit_distance`` is the native host library's (``utils/native.py``), as
+in the JAX package; ``edit_distance_py`` is its plain version.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from ..utils.native import edit_distance_native as edit_distance
 
 
 def edit_distance_py(a: list, b: list) -> int:
@@ -41,7 +46,7 @@ def wer(refs: list[str], hyps: list[str]) -> float:
     for ref, hyp in zip(refs, hyps):
         ref_words = ref.strip().split()
         hyp_words = hyp.strip().split()
-        total_errors += edit_distance_py(hyp_words, ref_words)
+        total_errors += edit_distance(hyp_words, ref_words)
         total_words += len(ref_words)
     return total_errors / total_words if total_words else 0.0
 

@@ -794,6 +794,39 @@ def test_beam_kernel_rejects_what_it_does_not_take(cuda):
 
 
 @pytest.mark.gpu
+def test_auto_route_sends_what_the_kernels_refuse_to_the_plain_decoders(cuda):
+    """``"auto"`` on a card model: a beam of 10 (the fused beam takes 1-8)
+    goes to the batched beam and a joint width of 100 in bf16 (not whole
+    16-byte groups) to label-looping and the batched beam, where the
+    wrappers raise; the Transcriber transcribes through them."""
+    from indic_cl_asr_torch.audio.features import FrontendConfig
+    from indic_cl_asr_torch.ops import beam_fused as bfm
+    from indic_cl_asr_torch.train.eval import Transcriber
+
+    model = HybridRNNTCTC(tiny_config(), device=cuda)
+    tr = Transcriber(model=model, tokenizer=None, languages=["a"],
+                     frontend=FrontendConfig(n_mels=32), beam_size=10)
+    assert (tr.greedy_impl, tr.beam_impl) == ("fused", "xla")
+    f = torch.zeros((2, 5, 32), device=cuda)
+    lens = torch.full((2,), 5, device=cuda)
+    lang = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        bfm.rnnt_beam_search_fused(f, lens, lang, model, beam_size=10)
+    audio = torch.zeros((2, 16000), device=cuda)
+    n = torch.full((2,), 16000, device=cuda)
+    assert len(tr.decode_batch(audio, n, lang, "rnnt_beam")) == 2
+    narrow = HybridRNNTCTC(tiny_config(joint_hidden=100, dtype=torch.bfloat16), device=cuda)
+    tr = Transcriber(model=narrow, tokenizer=None, languages=["a"],
+                     frontend=FrontendConfig(n_mels=32))
+    assert (tr.greedy_impl, tr.beam_impl) == ("labelsync", "xla")
+    with pytest.raises(ValueError):
+        rnnt_greedy_decode_fused(torch.zeros((2, 5, 100), device=cuda, dtype=torch.bfloat16),
+                                 lens, lang, narrow)
+    for decoder in ("rnnt", "rnnt_beam"):
+        assert len(tr.decode_batch(audio, n, lang, decoder)) == 2
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d_token", [0.3, 0.0])
 def test_beam_kernel_decides_merge_ties_as_the_plain_version(cuda, d_token):
     """The joint's pred projection zeroed, so every hypothesis of a row

@@ -1,10 +1,14 @@
 """The port stands alone: ``indic_cl_asr_torch`` and ``chip_smoke.py``
 import no ``jax``/``flax``/``orbax`` and nothing of ``indic_cl_asr_tpu``
-(checked in a fresh interpreter and by scanning the sources), and the
-entry points raise without a CUDA card unless the CPU is asked for."""
+(checked in a fresh interpreter and by scanning the sources), name none
+of the JAX package's native sources or its built library (the port builds
+its own copy, ``csrc/host/``), and the entry points raise without a CUDA
+card unless the CPU is asked for."""
 
 import ast
+import importlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -57,6 +61,39 @@ def test_source_imports_nothing_of_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def _port_files():
+    files = sorted(p for p in (ROOT / "indic_cl_asr_torch").rglob("*")
+                   if p.is_file() and p.suffix in (".py", ".cu", ".cuh", ".cpp", ".yaml"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_none_of_the_jax_packages_native_runtime(path):
+    """``native/libindic_native.so`` and ``native/*.cpp`` belong to the JAX
+    package; the port loads and builds only ``csrc/host/``."""
+    found = re.findall(r"native/(?:libindic_native|[\w*]+\.(?:cpp|so))|libindic_native",
+                       path.read_text())
+    assert not found, f"{path}: {found}"
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("profile_step", ["--steps", "1"]),
+    ("flops_audit", []),
+    ("bench_eval", ["--tiny"]),
+])
+def test_host_side_scripts_need_a_card_unless_cpu_is_asked(script, argv, monkeypatch):
+    mod = importlib.import_module(f"indic_cl_asr_torch.scripts.{script}")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: these run on it")
+    # nothing may run before the device is resolved
+    monkeypatch.setattr(mod, "flagship_step" if script != "bench_eval" else "HybridRNNTCTC",
+                        None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv + ["--device", "cuda"])
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():

@@ -20,6 +20,7 @@ same tolerances, at U+1 from 1 to WARP_MAX_U1 + 1.
 
 import itertools
 import re
+import warnings
 from pathlib import Path
 
 import jax
@@ -145,6 +146,37 @@ def test_fused_loss_and_grads_match_jax(uniform, remat, masked):
     for name, got, want in zip(("f", "g", "w", "b"), grads, jg):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5,
                                    err_msg=name)
+
+
+def test_remat_none_over_the_memory_limit_warns_and_takes_full(monkeypatch):
+    """``RNNT_REMAT_NONE_LIMIT_GB`` below the residual estimate: ``"none"``
+    warns with the JAX package's text and takes ``"full"``, so its loss and
+    gradients equal ``"full"``'s bit for bit (dropout 0.3, the same
+    generator seed); the default limit keeps ``"none"`` without a word."""
+    f, g, w, b, labels, fl, ul = _fused_inputs(5)
+    kw = dict(blank=w.shape[-1] - 1, chunk_size=4)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        rnnt_loss_fused(*_t(f, g, w, b, labels, fl, ul), remat="none", **kw)
+    monkeypatch.setenv("RNNT_REMAT_NONE_LIMIT_GB", "1e-6")
+    with pytest.warns(UserWarning) as jax_said:
+        jax_rnnt_loss_fused(*(jnp.asarray(x) for x in (f, g, w, b, labels, fl, ul)),
+                            remat="none", **kw)
+    out = {}
+    for remat in ("none", "full"):
+        leaves = [t.requires_grad_(True) for t in _t(f, g, w, b)]
+        with warnings.catch_warnings(record=True) as said:
+            warnings.simplefilter("always")
+            loss = rnnt_loss_fused(*leaves, *_t(labels, fl, ul), remat=remat,
+                                   dropout_rate=0.3,
+                                   generator=torch.Generator().manual_seed(11), **kw)
+        out[remat] = (loss.detach(), torch.autograd.grad(loss, leaves), said)
+    assert [str(m.message) for m in out["none"][2]] == [str(m.message) for m in jax_said]
+    assert "falling back to 'full'" in str(jax_said[0].message)
+    assert out["full"][2] == []
+    assert torch.equal(out["none"][0], out["full"][0])
+    for a, c in zip(out["none"][1], out["full"][1]):
+        assert torch.equal(a, c)
 
 
 def test_fused_remat_full_reuses_the_forward_dropout_mask():

@@ -178,6 +178,55 @@ def test_auto_decoders_follow_the_config(device, layers, want):
         "framesync", "xla")
 
 
+@pytest.mark.parametrize("search,widths,want", [
+    (dict(beam_size=10), {}, ("fused", "xla")),
+    (dict(topk=17), {}, ("fused", "xla")),
+    (dict(beam_size=8, topk=16), {}, ("fused", "fused")),
+    (dict(beam_size=4, topk=8), dict(n_classes=5), ("fused", "xla")),
+    ({}, dict(joint_hidden=100, dtype=torch.bfloat16), ("labelsync", "xla")),
+    ({}, dict(pred_hidden=36, dtype=torch.bfloat16), ("labelsync", "xla")),
+    ({}, dict(joint_hidden=100), ("fused", "fused")),  # 400 bytes in f32
+    ({}, dict(dtype=torch.float16), ("labelsync", "xla")),
+])
+def test_auto_decoders_send_what_the_kernels_refuse_elsewhere(search, widths, want):
+    """``"auto"`` picks a fused kernel only where its wrapper's ``fits``
+    holds (beam size 1-8, top-K 1-min(16, V+1), widths of whole 16-byte
+    groups in f32 or bf16), as the JAX package gates its kernels on
+    ``fits_fused_beam``/``fits_fused_decode``; an explicit ``"fused"`` on
+    such a search or model raises."""
+    cuda = torch.device("cuda")
+    kw = dict(search, **widths)
+    assert resolve_decoders("auto", "auto", cuda, 1, "relu", **kw) == want
+    assert resolve_decoders("auto", "auto", torch.device("cpu"), 1, "relu", **kw) == (
+        "framesync", "xla")
+    for what, impl, other in (("greedy", want[0], "labelsync"), ("beam", want[1], "xla")):
+        args = ("fused", "auto") if what == "greedy" else ("auto", "fused")
+        if impl == "fused":
+            assert resolve_decoders(*args, cuda, 1, "relu", **kw)[what == "beam"] == "fused"
+            continue
+        with pytest.raises(ValueError, match=f'{what}_impl="{other}"'):
+            resolve_decoders(*args, cuda, 1, "relu", **kw)
+
+
+def test_transcriber_passes_its_beam_and_widths_to_the_route():
+    """The Transcriber resolves with its own beam size and the model's
+    widths, dtype and classes: beam size 10 on a (simulated) CUDA model
+    takes the batched beam, and an explicit fused beam there raises at
+    construction."""
+    model = _model_on("cuda", 1)
+    tr = Transcriber(model=model, tokenizer=None, languages=LANGS,
+                     frontend=FrontendConfig(n_mels=32), beam_size=10)
+    assert (tr.greedy_impl, tr.beam_impl) == ("fused", "xla")
+    with pytest.raises(ValueError, match='beam_impl="xla"'):
+        Transcriber(model=model, tokenizer=None, languages=LANGS,
+                    frontend=FrontendConfig(n_mels=32), beam_size=10, beam_impl="fused")
+    narrow = types.SimpleNamespace(
+        cfg=tiny_config(joint_hidden=100, dtype=torch.bfloat16), device=torch.device("cuda"))
+    tr = Transcriber(model=narrow, tokenizer=None, languages=LANGS,
+                     frontend=FrontendConfig(n_mels=32))
+    assert (tr.greedy_impl, tr.beam_impl) == ("labelsync", "xla")
+
+
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
 @pytest.mark.parametrize("greedy,beam,match", [
     ("fused", "auto", 'greedy_impl="labelsync"'),
