@@ -1705,13 +1705,18 @@ ZERO_GRADIENT = {"linear_k.bias": "linear_k.weight",
                  "depthwise_conv.bias": "depthwise_conv.weight"}
 
 
-def grad_scale(name, grads):
-    """max|grad| of parameter ``name``, or of its weight where its own
-    gradient is only rounding residue (ZERO_GRADIENT)."""
+def gradient_owner(name):
+    """``name``, or its weight's where its own gradient is only rounding
+    residue (ZERO_GRADIENT)."""
     for bias, weight in ZERO_GRADIENT.items():
         if name.endswith(bias):
-            name = name[: -len(bias)] + weight
-    return max(grads[name].abs().max().item(), 1e-30)
+            return name[: -len(bias)] + weight
+    return name
+
+
+def grad_scale(name, grads):
+    """max|grad| of parameter ``name``'s gradient owner."""
+    return max(grads[gradient_owner(name)].abs().max().item(), 1e-30)
 
 
 def check_step_f32(dev, rec, host_batch, rnnt_impl="xla", lr=1e-4):
@@ -2408,6 +2413,350 @@ def batch_norm_stats_(model, batch, frontend):
             m.momentum = momentum
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_setup(dev, init=None):
+    """Phase 9's data-parallel flagship: phase 8's model (bf16, flash
+    attention, layers 0-11 frozen, AdamW lr 1e-4) with dropout and dither
+    off, so that two ranks and one process draw nothing that differs;
+    SpecAugment on, the pallas joint. Seeded weights, or the config and
+    weights ``init`` holds (``torch.save({"cfg", "state"})``)."""
+    import dataclasses
+
+    import torch
+
+    from indic_cl_asr_torch.audio.features import FrontendConfig
+    from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC, flagship_config, init_weights_
+    from indic_cl_asr_torch.train.state import make_optimizer
+    from indic_cl_asr_torch.train.step import StepConfig
+
+    if init is None:
+        cfg = flagship_config(torch.bfloat16, attn_impl="flash", frozen_till=12)
+        cfg = dataclasses.replace(cfg, pred_dropout=0.0, joint_dropout=0.0,
+                                  encoder=dataclasses.replace(cfg.encoder, dropout=0.0,
+                                                              dropout_att=0.0,
+                                                              dropout_pre_encoder=0.0))
+        model = init_weights_(HybridRNNTCTC(cfg, device=dev), torch.Generator().manual_seed(0))
+    else:
+        saved = torch.load(init, weights_only=False)
+        model = HybridRNNTCTC(saved["cfg"], device=dev)
+        model.load_state_dict(saved["state"])
+    opt = make_optimizer(model, lr=1e-4, weight_decay=0.01,
+                         freeze_encoder_till=model.cfg.encoder.frozen_till, device=dev)
+    step_cfg = StepConfig(frontend=FrontendConfig(dither=0.0), rnnt_chunk_size=64,
+                          uniform_lang_head=True, rnnt_impl="pallas")
+    return model, opt, step_cfg
+
+
+def dp_step_result(model, opt, aux):
+    """What the two-rank check compares, on the CPU: the aux losses, every
+    parameter, the BatchNorm statistics and the first moment (0.1 x the
+    step's summed gradient)."""
+    return {"aux": {k: float(v) for k, v in aux.items()},
+            "state": {k: v.detach().float().cpu() for k, v in model.state_dict().items()},
+            "grad": {n: (m / 0.1).float().cpu() for n, m in zip(opt.names, opt.mu)},
+            "trainable": list(opt.names)}
+
+
+# the two-rank check's steps: the saved weights of each, bf16 and f32
+DP_INITS = {"bf16": "init.pt", "f32": "init_f32.pt"}
+
+
+def dp_rank_main(rank, port, root, device) -> int:
+    """One rank of phase 9's two-rank check (``chip_smoke.py --dp-rank R
+    PORT DIR DEVICE``): gloo on DEVICE (cuda:0) beside the other rank, one
+    step on this rank's 8 rows of the saved B16 batch from each of
+    ``DP_INITS`` (f32 with TF32 off); writes its results to DIR."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from indic_cl_asr_torch.parallel import distributed as D
+    from indic_cl_asr_torch.parallel import sharding as S
+    from indic_cl_asr_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    D.setup_distributed(f"127.0.0.1:{port}", 2, rank, device=dev, backend="gloo")
+    mesh = S.make_mesh()
+    batch = S.place_batch(torch.load(os.path.join(root, "batch.pt")), mesh, dev)
+    out = {"rows": int(batch["audio"].shape[0]), "row0": batch["row0"]}
+    for dtype, init in DP_INITS.items():
+        model, opt, step_cfg = dp_setup(dev, os.path.join(root, init))
+        step = make_train_step(model, step_cfg, opt, device=dev, mesh=mesh)
+        S.COUNTS.clear()
+        t0 = time.perf_counter()
+        aux = step(batch, torch.Generator().manual_seed(0))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[dtype] = dict(dp_step_result(model, opt, aux), step_s=time.perf_counter() - t0,
+                          counts=dict(S.COUNTS))
+        del model, opt, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    D.barrier("results")
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    D.shutdown()
+    return 0
+
+
+# the two-rank check's bars. In f32 (TF32 off) the two ranks run the same
+# kernels on the same rows as one process; only the order of the sums
+# differs (each rank sums its rows, the all-reduce adds the shares) and
+# the kernels' atomics. So each tensor is held alone to the f32
+# one-process step by its distance (``f32_distances``). A fixed bar does
+# not know how far reordered f32 sums move a tensor: 4.0e-5 on the worst
+# tensor at d64, 3 layers on the CPU, 1.85e-4 at the flagship on the card
+# (layer 16's pointwise conv; the median tensor 4.7e-5, the kernels'
+# atomics alone 2.2e-6). The witness is two more one-process f32 steps
+# from the same weights each moved by one rounding (x (1 ± DP_ULP), signs
+# from two seeds): each tensor of the two ranks lies within DP_F32_FACTOR
+# x the larger of their distances on the same tensor, plus DP_F32_FLOOR
+# for tensors one rounding hardly moves. In the CPU rehearsal the two
+# ranks' median tensor sat 2.1x one rounding's (2.1e-5 against 1.0e-5),
+# and a BatchNorm whose backward leaves the cotangent unreduced moved the
+# depthwise conv bias by 2.7, 140,000x a bar of twice one rounding. The
+# parameters are not held to a bar: Adam's first update is about
+# ±lr·sign(g) whatever g's size, so the first moment carries the check.
+# In bf16 a gradient summed from many cancelling terms (the position and
+# CTC biases') keeps little of bf16's 8 bits: the one-process bf16 step's
+# gradients lie up to 5.7% (relative L2) from the f32 step's, the two
+# ranks' up to 7.1%, on other tensors in each run (an H100 80GB HBM3 at
+# 700 W). So in addition the two-rank bf16 step is held to the f32
+# one-process step of the same weights and batch: the loss, all gradients
+# together (relative L2), the worst gradient (a ZERO_GRADIENT bias's
+# relative to its weight's RMS over its size) and the worst BatchNorm
+# statistic (relative to 1 + |x|), each within DP_FACTOR x the
+# one-process bf16 step's own distance plus a floor (1e-4; gradients
+# 1e-3). In both dtypes the frozen parameters stay equal and the two
+# ranks hold one model
+DP_ULP, DP_F32_FACTOR, DP_F32_FLOOR, DP_FACTOR = 2.0 ** -23, 4.0, 1e-5, 2.0
+
+
+def f32_distances(a, b) -> dict:
+    """Step ``a`` from the f32 step ``b``, tensor by tensor: each
+    gradient's (the first moment over 0.1) max |Δ| / (its owner's max|g|
+    (ZERO_GRADIENT) + |g|), each BatchNorm statistic's max |Δ| / (1 +
+    |x|), and the loss's relative distance (key ``loss``)."""
+    out = {n: float(((a["grad"][n] - g).abs() / (grad_scale(n, b["grad"]) + g.abs())).max())
+           for n, g in b["grad"].items()}
+    out.update({k: float(((a["state"][k] - v).abs() / (1 + v.abs())).max())
+                for k, v in b["state"].items() if k.endswith(("running_mean", "running_var"))})
+    out["loss"] = abs(a["aux"]["train_loss"] - b["aux"]["train_loss"]) / abs(b["aux"]["train_loss"])
+    return out
+
+
+def rounded_weights_(model, seed=1):
+    """Every parameter x (1 ± DP_ULP), the signs drawn from ``seed``."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            sign = torch.randint(0, 2, p.shape, generator=gen).to(p.device) * 2 - 1
+            p.mul_(1 + DP_ULP * sign)
+
+
+def check_two_ranks(dev, rec, tasks, tok):
+    """Phase 9's two-rank check: two processes on cuda:0 joined over gloo
+    each take 8 rows of one B16 batch of phase 8's data and step the
+    flagship once in bf16 and once in f32 (``dp_setup``, ``DP_INITS``);
+    against this process's one-process steps of the whole batch (bf16
+    once; f32 twice, the run-to-run spread of the kernels' atomics, and
+    twice from weights moved by one rounding, the witness), each f32
+    tensor alone and the bf16 step in aggregate (the bars above); the two
+    ranks' models against each other (equal)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from indic_cl_asr_torch.data.pipeline import BatchPipeline, BucketSpec
+    from indic_cl_asr_torch.train.step import batch_to_device_dict, make_train_step
+
+    t_check = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke", "dp")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    spec = BucketSpec(boundaries_sec=(4.0, 8.0), max_tokens=(64, 128))
+    host = next(iter(BatchPipeline(tasks[CL_LANGS[0]].train, tok, CL_LANGS, 16, spec=spec)))
+    torch.save(batch_to_device_dict(host, "cpu"), os.path.join(root, "batch.pt"))
+    model, _, _ = dp_setup(dev)
+    cfg, state = model.cfg, model.state_dict()
+    torch.save({"cfg": cfg, "state": state}, os.path.join(root, DP_INITS["bf16"]))
+    f32 = dataclasses.replace(cfg, dtype=torch.float32,
+                              encoder=dataclasses.replace(cfg.encoder, dtype=torch.float32))
+    torch.save({"cfg": f32, "state": state}, os.path.join(root, DP_INITS["f32"]))
+    del model, state
+    torch.cuda.empty_cache()
+    port = free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               str(port), root, str(dev)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(2)]
+    errs = []
+    try:
+        for p in procs:
+            errs.append(p.communicate(timeout=300)[1])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"two-rank check: rank {r} exited {p.returncode}:\n"
+                                 f"{errs[r][-3000:]}")
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+    ones = []
+    for dtype, rounding in (("bf16", 0), ("f32", 0), ("f32", 0), ("f32", 1), ("f32", 2)):
+        model, opt, step_cfg = dp_setup(dev, os.path.join(root, DP_INITS[dtype]))
+        if rounding:
+            rounded_weights_(model, seed=rounding)
+        aux = make_train_step(model, step_cfg, opt, device=dev)(
+            batch_to_device_dict(host, dev), torch.Generator().manual_seed(0))
+        ones.append(dp_step_result(model, opt, aux))
+        del model, opt
+    torch.cuda.empty_cache()
+    one, truth, truth_again = ones[:3]
+
+    def grad_norm(g, name):
+        """‖g‖ of ``name``'s gradient owner, over ``name``'s size."""
+        w = g[gradient_owner(name)]
+        return max(float(w.norm()) * (g[name].numel() / w.numel()) ** 0.5, 1e-30)
+
+    def distances(a):
+        """``a``'s step from the f32 step's, relative: the loss, all
+        gradients together, the worst gradient and BatchNorm statistic."""
+        grads = {n: float((a["grad"][n] - g).norm()) / grad_norm(truth["grad"], n)
+                 for n, g in truth["grad"].items()}
+        worst = max(grads, key=grads.get)
+        stats = {k: float(((a["state"][k] - v).abs() / (1 + v.abs())).max())
+                 for k, v in truth["state"].items()
+                 if k.endswith(("running_mean", "running_var"))}
+        diff = torch.cat([(a["grad"][n] - g).flatten() for n, g in truth["grad"].items()])
+        total = torch.cat([g.flatten() for g in truth["grad"].values()])
+        return {"loss": abs(a["aux"]["train_loss"] - truth["aux"]["train_loss"])
+                / abs(truth["aux"]["train_loss"]),
+                "grads": float(diff.norm() / total.norm()), "worst_grad": grads[worst],
+                "worst_grad_name": worst, "worst_stat": max(stats.values())}
+
+    two, again = f32_distances(ranks[0]["f32"], truth), f32_distances(truth_again, truth)
+    rounded = [f32_distances(a, truth) for a in ones[3:]]
+    rounded = {k: max(r[k] for r in rounded) for k in two}
+    f32_ratio = {k: two[k] / (DP_F32_FACTOR * rounded[k] + DP_F32_FLOOR) for k in two}
+    order = sorted(f32_ratio, key=f32_ratio.get)
+
+    def summary(d):
+        worst = max(d, key=d.get)
+        return {"worst": d[worst], "worst_name": worst, "median": sorted(d.values())[len(d) // 2]}
+
+    f32_out = {"ratio_to_bar": summary(f32_ratio), "next_names": order[-4:-1],
+               "two_ranks": summary(two), "one_process_again": summary(again),
+               "one_rounding": summary(rounded),
+               "worst_ratio_detail": {"two_ranks": two[order[-1]],
+                                      "one_rounding": rounded[order[-1]]}}
+    two_d, one_d = distances(ranks[0]["bf16"]), distances(one)
+    ratio = {k: two_d[k] / (DP_FACTOR * one_d[k] + (1e-3 if "grad" in k else 1e-4))
+             for k in ("loss", "grads", "worst_grad", "worst_stat")}
+    trainable = set(one["trainable"])
+    frozen = [f"{dtype} {k}" for dtype, want in (("bf16", one), ("f32", truth))
+              for k, v in want["state"].items() if k not in trainable
+              and not k.endswith(("running_mean", "running_var"))
+              and not torch.equal(ranks[0][dtype]["state"][k], v)]
+    out = {"f32": f32_out,
+           "bf16_from_f32": {"two_ranks": two_d, "one_process": one_d},
+           "bf16_ratio_to_bar": ratio,
+           "loss": {"two_ranks_bf16": ranks[0]["bf16"]["aux"]["train_loss"],
+                    "one_process_bf16": one["aux"]["train_loss"],
+                    "two_ranks_f32": ranks[0]["f32"]["aux"]["train_loss"],
+                    "one_process_f32": truth["aux"]["train_loss"]},
+           "frozen_changed": len(frozen),
+           "ranks_equal": all(torch.equal(v, ranks[1][dtype]["state"][k])
+                              for dtype in DP_INITS for k, v in ranks[0][dtype]["state"].items()),
+           "rows": [r["rows"] for r in ranks], "row0": [r["row0"] for r in ranks],
+           "rank_step_s": {d: [r[d]["step_s"] for r in ranks] for d in DP_INITS},
+           "rank_counts": ranks[0]["bf16"]["counts"],
+           "bars": {"f32_factor": DP_F32_FACTOR, "f32_floor": DP_F32_FLOOR, "ulp": DP_ULP,
+                    "bf16_factor": DP_FACTOR},
+           "check_s": time.perf_counter() - t_check}
+    rec["two_ranks"] = out
+    log(f"  two ranks (gloo on cuda:0, 8 rows each of B16, rnnt_impl 'pallas', SpecAugment on; "
+        f"bf16 and f32): {json.dumps(out)}")
+    if not (out["ranks_equal"] and out["rows"] == [8, 8] and max(f32_ratio.values()) <= 1.0
+            and max(ratio.values()) <= 1.0 and not frozen):
+        raise AssertionError(f"two ranks against one process: {out}")
+    return out
+
+
+def time_dp_step(dev, rec, tasks, tok, steps=5):
+    """The flagship step (``dp_setup``) on one B16 batch with the group of
+    one (``make_mesh()``: its all-reduces) against no group, in turns
+    (none, group, group, none, none, group: the host's noise is ~20 ms a
+    step), wall ms a step beside one profiled step's device-busy ms and
+    idle share; the all-reduces of a step, their bytes and the host ms
+    spent issuing them."""
+    import torch
+
+    from indic_cl_asr_torch.data.pipeline import BatchPipeline, BucketSpec
+    from indic_cl_asr_torch.parallel import sharding as S
+    from indic_cl_asr_torch.train.step import batch_to_device_dict, make_train_step
+    from indic_cl_asr_torch.utils.profiling import device_profile
+
+    model, opt, step_cfg = dp_setup(dev)
+    mesh = S.make_mesh()
+    spec = BucketSpec(boundaries_sec=(4.0, 8.0), max_tokens=(64, 128))
+    host = next(iter(BatchPipeline(tasks[CL_LANGS[0]].train, tok, CL_LANGS, 16, spec=spec)))
+    runs = {"no_group": (make_train_step(model, step_cfg, opt, device=dev),
+                         batch_to_device_dict(host, dev)),
+            "group_of_one": (make_train_step(model, step_cfg, opt, device=dev, mesh=mesh),
+                             S.place_batch(batch_to_device_dict(host, "cpu"), mesh, dev))}
+    gen = torch.Generator().manual_seed(0)
+    # warm-up: both paths in turns, `steps` steps each twice (one step
+    # each left the first timed turn ~100 ms a step slower than the rest)
+    for _ in range(2):
+        for step, batch in runs.values():
+            for _ in range(steps):
+                step(batch, gen)
+    S.COUNTS.clear()
+    for _ in range(steps):
+        runs["group_of_one"][0](runs["group_of_one"][1], gen)
+    torch.cuda.synchronize()
+    per_step = {k: v / steps for k, v in S.COUNTS.items()}
+    ms = {k: [] for k in runs}
+    for k in ("no_group", "group_of_one", "group_of_one", "no_group", "no_group",
+              "group_of_one"):
+        step, batch = runs[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(batch, gen)
+        torch.cuda.synchronize()
+        ms[k].append((time.perf_counter() - t0) * 1e3 / steps)
+    busy = {k: device_profile(lambda: runs[k][0](runs[k][1], gen), host=False)["device_busy_ms"]
+            for k in runs}
+    median = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    out = {"ms": ms, "median_ms": median,
+           "group_minus_none_ms": median["group_of_one"] - median["no_group"],
+           "device_busy_ms": busy,
+           "idle_share": {k: 1 - busy[k] / min(ms[k]) for k in runs},
+           "all_reduces_a_step": per_step["all_reduce"],
+           "all_reduce_bytes_a_step": per_step["all_reduce_bytes"],
+           "all_reduce_host_ms_a_step": per_step["all_reduce_host_s"] * 1e3}
+    rec["dp_step"] = out
+    log(f"  data parallel, a flagship step (B16, rnnt_impl 'pallas') with the group of one "
+        f"against no group: {json.dumps(out)}")
+    del model, opt, runs
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_cli(dev, rec, tasks, tok, overrides=()):
     """Phase 9: the command line. Phase 8's WAVs as manifests, the model
     config.yaml gives with --n_langs 2 (the flagship: 17 layers d512 in 8
@@ -2427,10 +2776,13 @@ def run_cli(dev, rec, tasks, tok, overrides=()):
 
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from indic_cl_asr_torch.audio.features import FrontendConfig
     from indic_cl_asr_torch.data.pipeline import BatchPipeline
     from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC
+    from indic_cl_asr_torch.parallel import distributed as D
+    from indic_cl_asr_torch.parallel import sharding as S
     from indic_cl_asr_torch.scripts import _common as C
     from indic_cl_asr_torch.scripts import cl_baseline, results, transcribe
     from indic_cl_asr_torch.train.eval import Transcriber
@@ -2474,6 +2826,12 @@ def run_cli(dev, rec, tasks, tok, overrides=()):
     del model
     wall["init_s"] = time.perf_counter() - t0
 
+    # --- the main path: counts reset just before, read just after; a
+    # process group of one over NCCL (INDIC_ASR_MULTIHOST=1, --mesh.data 0),
+    # destroyed at the end of the phase ---
+    group_env = {"INDIC_ASR_MULTIHOST": "1", "INDIC_ASR_COORDINATOR": f"127.0.0.1:{free_port()}",
+                 "INDIC_ASR_NUM_PROCESSES": "1", "INDIC_ASR_PROCESS_ID": "0"}
+    os.environ.update(group_env)
     # the run's own eval texts, the last of each (utterances, decoder), for
     # transcribe's texts to be held against
     evals, transcribe_entries = {}, Transcriber.transcribe
@@ -2483,15 +2841,17 @@ def run_cli(dev, rec, tasks, tok, overrides=()):
         evals[(tuple(e.audio_filepath for e in entries), decoder)] = hyps
         return hyps
 
-    # --- the main path: counts reset just before, read just after ---
     reset_training_counts()
+    S.COUNTS.clear()
     t0 = time.perf_counter()
     Transcriber.transcribe = recorded
     try:
-        res = cl_baseline.main(argv + ["--init_checkpoint", init])
+        res = cl_baseline.main(argv + ["--init_checkpoint", init, "--mesh.data", "0"])
     finally:
         Transcriber.transcribe = transcribe_entries
     launches = count("cl_baseline_s", t0)
+    group = {"backend": dist.get_backend(), "world": D.process_count(),
+             "all_reduces": S.COUNTS["all_reduce"], "bytes": S.COUNTS["all_reduce_bytes"]}
     (run_dir,) = [os.path.join(out, d) for d in os.listdir(out)]
     steps = step_records(os.path.join(run_dir, "metrics.jsonl"))
     # eval after task t: languages 0..t, val and test, clean and noisy
@@ -2505,8 +2865,15 @@ def run_cli(dev, rec, tasks, tok, overrides=()):
             "rnnt_greedy_decode_fused": rnnt_batches}
     log(f"  cl_baseline: {wall['cl_baseline_s']:.2f} s, {len(steps)} steps, "
         f"{rnnt_batches} RNNT + {rnnt_batches} CTC eval batches; launches {launches}")
+    # a step all-reduces each BatchNorm's sums (17), their cotangents in the
+    # trainable layers (5), and the gradients with the losses (1)
+    group["want_all_reduces"] = (L + (L - F) + 1) * len(steps)
+    log(f"  process group (NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}): {group}")
     if len(steps) != 4 or launches != want:
         raise AssertionError(f"cli: {len(steps)} steps (want 4), launches {launches} != {want}")
+    if (group["backend"], group["world"]) != ("nccl", 1) or \
+            group["all_reduces"] != group["want_all_reduces"]:
+        raise AssertionError(f"cli: the run did not step through the group of one: {group}")
     losses = [r[k] for r in steps for k in r if k.startswith("train/train_loss_")]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"cli: a non-finite loss in {losses}")
@@ -2569,14 +2936,25 @@ def run_cli(dev, rec, tasks, tok, overrides=()):
     t0 = time.perf_counter()
     summaries, _ = quiet_main(results.main, [run_dir, "--out", os.path.join(root, "report")])
     wall["results_s"] = time.perf_counter() - t0
-    wall["phase_s"] = time.perf_counter() - t_phase
     missing = [p for p in REPORT_PDFS if not os.path.exists(os.path.join(root, "report", p))]
     bwt = {d: v["bwt"] for s in summaries.values() for d, v in s.items()}
     if missing or not all(math.isfinite(b) for v in bwt.values() for b in v):
         raise AssertionError(f"cli: report PDFs missing {missing}, BWT {bwt}")
+    main_path_s = time.perf_counter() - t_phase
+    log(f"  phase 9 main path {main_path_s:.2f} s (13.0-19.7 s in PERF.md, before the "
+        "process group)")
+    dp_step = time_dp_step(dev, rec, tasks, tok)
+    two_ranks = check_two_ranks(dev, rec, tasks, tok)
+    wall["two_ranks_s"] = two_ranks["check_s"]
+    wall["main_path_s"] = main_path_s
+    for k in group_env:
+        os.environ.pop(k)
+    D.shutdown()  # phases 10-12 run without a group
+    wall["phase_s"] = time.perf_counter() - t_phase
     rec["cli"] = {"wall_s": wall, "launches": total, "steps": len(steps),
                   "rnnt_eval_batches": rnnt_batches, "losses": losses, "wer": wers,
-                  "bwt": bwt, "report_pdfs": len(REPORT_PDFS)}
+                  "bwt": bwt, "report_pdfs": len(REPORT_PDFS), "group": group,
+                  "nccl": ".".join(map(str, torch.cuda.nccl.version())), "dp_step": dp_step}
     print("cli: " + json.dumps({"wall_s": wall, "launches": total}), flush=True)
     return total
 
@@ -3347,4 +3725,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.rnnt_loss import row_count
 from .mas import _valid_frames, joint_logits
 
 
@@ -48,27 +49,28 @@ def end_task(model: torch.nn.Module, teacher_dtype: str = "float32") -> torch.nn
     return teacher.to(getattr(torch, teacher_dtype))
 
 
-def ctc_kd_loss(student_logprobs, teacher_logprobs, row_mask=None):
+def ctc_kd_loss(student_logprobs, teacher_logprobs, row_mask=None, n_rows=None):
     """KL(teacher || student) with torch kl_div(input=student_logprob,
     target=teacher_prob, reduction='batchmean') semantics: sum / B
     (cl_baseline_lwf.py:242-246); ``row_mask`` leaves out a final bucket
-    batch's repeat rows."""
+    batch's repeat rows, and the sum is divided by
+    ``ops/rnnt_loss.py:row_count(row_mask, n_rows, B)``."""
     t = teacher_logprobs.detach().float()
     s = student_logprobs.float()
     kl = torch.exp(t) * (t - s)
     if row_mask is not None:
         kl = torch.where(row_mask.reshape((-1,) + (1,) * (kl.dim() - 1)), kl, 0.0)
-        return kl.sum() / row_mask.sum()
-    return kl.sum() / student_logprobs.shape[0]
+    return kl.sum() / row_count(row_mask, n_rows, student_logprobs.shape[0])
 
 
 def joint_kd_chunked(f_proj_s, g_proj_s, f_proj_t, g_proj_t, head_w_s, head_b_s,
                      head_w_t, head_b_t, *, activation: str = "relu",
                      chunk_size: int = 64, faithful_raw_logits: bool = False,
-                     row_mask=None, uniform_head: bool = False):
+                     row_mask=None, uniform_head: bool = False, n_rows=None):
     """Chunked KL(teacher joint || student joint), 'batchmean' over B
     (cl_baseline_lwf.py:248-259). Frames added by chunk padding and repeat
-    rows are masked out; the in-bucket T/U padding stays in."""
+    rows are masked out; the in-bucket T/U padding stays in. ``n_rows``
+    as in ``ctc_kd_loss``."""
     B, T, H = f_proj_s.shape
     n_chunks = -(-T // chunk_size)
     pad = n_chunks * chunk_size - T
@@ -92,5 +94,4 @@ def joint_kd_chunked(f_proj_s, g_proj_s, f_proj_t, g_proj_t, head_w_s, head_b_s,
         total = total + checkpoint(
             chunk_kd, f_proj_s[:, sl], f_proj_t[:, sl], g_proj_s, g_proj_t, head_w_s,
             head_b_s, head_w_t, head_b_t, ci, use_reentrant=False)
-    n_rows = row_mask.sum() if row_mask is not None else B
-    return total / n_rows
+    return total / row_count(row_mask, n_rows, B)

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..models.common import activate
+from ..ops.rnnt_loss import row_count
 
 
 @dataclasses.dataclass
@@ -80,13 +81,15 @@ def _valid_frames(z, ci, chunk_size, T, row_mask):
 
 
 def joint_energy_chunked(f_proj, g_proj, head_w, head_b, *, activation: str = "relu",
-                         chunk_size: int = 64, row_mask=None, uniform_head: bool = False):
+                         chunk_size: int = 64, row_mask=None, uniform_head: bool = False,
+                         n_rows=None):
     """mean over (B, T, U) of sum_v joint_logits^2, chunked over T — the
     reference's rnn_logits surrogate (cl_baseline_mas.py:264-268). Frames
     added by chunk padding and the repeat rows of a final bucket batch
     (``row_mask``) are masked out; the in-bucket T/U padding stays in,
     like the reference's mean over its pad-to-max tensors. The divisor
-    is n_rows·T·U1."""
+    is rows·T·U1, the rows ``ops/rnnt_loss.py:row_count(row_mask,
+    n_rows, B)``."""
     B, T, H = f_proj.shape
     n_chunks = -(-T // chunk_size)
     T_pad = n_chunks * chunk_size
@@ -103,23 +106,22 @@ def joint_energy_chunked(f_proj, g_proj, head_w, head_b, *, activation: str = "r
         f_chunk = f_proj[:, ci * chunk_size:(ci + 1) * chunk_size]
         total = total + checkpoint(chunk_energy, f_chunk, g_proj, head_w, head_b, ci,
                                    use_reentrant=False)
-    n_rows = row_mask.sum() if row_mask is not None else B
-    return total / (n_rows * T * g_proj.shape[1])
+    return total / (row_count(row_mask, n_rows, B) * T * g_proj.shape[1])
 
 
 def mas_surrogate(cfg: MASConfig, f_proj, g_proj, head_w, head_b, ctc_logits, *,
                   activation: str = "relu", chunk_size: int = 64, row_mask=None,
-                  uniform_head: bool = False):
-    """(1-ctx) * joint energy + ctx * ctc energy (cl_baseline_mas.py:258-264)."""
+                  uniform_head: bool = False, n_rows=None):
+    """(1-ctx) * joint energy + ctx * ctc energy (cl_baseline_mas.py:258-264);
+    ``n_rows`` as in ``joint_energy_chunked``."""
     rnnt_energy = joint_energy_chunked(
         f_proj, g_proj, head_w, head_b, activation=activation, chunk_size=chunk_size,
-        row_mask=row_mask, uniform_head=uniform_head)
+        row_mask=row_mask, uniform_head=uniform_head, n_rows=n_rows)
     ctc_sq = (ctc_logits.float() ** 2).sum(-1)  # [B, T]
     if row_mask is not None:
         ctc_sq = torch.where(row_mask[:, None], ctc_sq, 0.0)
-        ctc_energy = ctc_sq.sum() / (row_mask.sum() * ctc_sq.shape[1])
-    else:
-        ctc_energy = ctc_sq.mean()
+    B, T = ctc_sq.shape
+    ctc_energy = ctc_sq.sum() / (row_count(row_mask, n_rows, B) * T)
     return (1.0 - cfg.mas_ctx) * rnnt_energy + cfg.mas_ctx * ctc_energy
 
 

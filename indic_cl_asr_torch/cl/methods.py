@@ -17,6 +17,12 @@ state across tasks and plugs into train/driver.py through the
 
 The JAX package's ``penalty_tree`` only keeps large pytrees out of a jit
 program's constants; eager PyTorch needs no such path.
+
+Under run_sequence's data mesh (``self.mesh``, which it sets) every
+forward here takes the global batch's BatchNorm statistics, every mean
+divides by the global count, and the importance epochs accumulate from
+the globally summed loss and gradients (the square and the absolute
+value do not commute with the sum over the ranks).
 """
 
 from __future__ import annotations
@@ -24,26 +30,21 @@ from __future__ import annotations
 import torch
 
 from ..audio.features import log_mel_spectrogram
-from ..models.common import Rngs
 from ..models.conformer import batch_stats_frozen
 from ..train.driver import CLMethod
-from ..train.step import StepConfig, hybrid_forward_loss, hybrid_forward_tensors
+from ..train.step import (StepConfig, batch_rows, data_parallel, hybrid_forward_loss,
+                          hybrid_forward_tensors, reduced)
 from . import ewc as E
 from . import lwf as L
 from . import mas as M
 
 
-def _row_mask(batch: dict, device):
-    n_valid = batch.get("n_valid")
-    if n_valid is None:
-        return None
-    return torch.arange(batch["audio"].shape[0], device=device) < int(n_valid)
-
-
-def _grads_by_name(out, names, params) -> dict:
-    grads = torch.autograd.grad(out, params, allow_unused=True)
-    return {n: (torch.zeros_like(p) if g is None else g.detach())
-            for n, p, g in zip(names, params, grads)}
+def _global_grads(mesh, out, names, params):
+    """({name: d out / d param}, out), each summed over the data ranks."""
+    grads, aux = reduced(mesh, torch.autograd.grad(out, params, allow_unused=True), params,
+                         {"out": out})
+    return ({n: (torch.zeros_like(p) if g is None else g.detach())
+             for n, p, g in zip(names, params, grads)}, aux["out"].detach())
 
 
 class NaiveMethod(CLMethod):
@@ -83,11 +84,11 @@ class EWCMethod(_ImportanceMethod):
     def importance_batch(self, acc, batch: dict, generator: torch.Generator):
         """fish += loss·grad² of a train-mode forward (dither, SpecAugment,
         dropout as in training), its BatchNorm statistics not kept."""
-        rngs = Rngs.from_host(generator, self.model.device)
-        with batch_stats_frozen(self.model):
+        with data_parallel(self.mesh, generator, self.model.device, self.model) as rngs, \
+                batch_stats_frozen(self.model):
             loss, _ = hybrid_forward_loss(self.model, self.step_cfg, batch, rngs, train=True)
-        grads = _grads_by_name(loss, self.names, self.params)
-        return E.accumulate_fisher(acc, grads, loss.detach())
+        grads, loss = _global_grads(self.mesh, loss, self.names, self.params)
+        return E.accumulate_fisher(acc, grads, loss)
 
     def end_task(self, acc, n_batches: int, total_utterances: int) -> None:
         self.state = E.end_task(self.cfg, self.state, acc, max(total_utterances, 1),
@@ -120,23 +121,24 @@ class MASMethod(_ImportanceMethod):
         without dither, the encoder in train mode (dropout, batch
         statistics, not kept), the prediction net in eval mode."""
         model, step_cfg = self.model, self.step_cfg
-        rngs = Rngs.from_host(generator, model.device)
         lang = batch["lang_ids"].long()
         model.train(True)
         model.prediction.eval()
-        with batch_stats_frozen(model):
+        with data_parallel(self.mesh, generator, model.device, model) as rngs, \
+                batch_stats_frozen(model):
             mel, mel_lens = log_mel_spectrogram(batch["audio"], batch["audio_len"],
                                                 step_cfg.frontend, training=False)
             f, _ = model.encode(mel, mel_lens, rngs)
             g, _ = model.predict(batch["tokens"], add_sos=True)
             f_proj, g_proj = model.joint_project(f, g)
             _, ctc_logits = model.ctc_logprobs(f, lang, return_logits=True)
+            row_mask, n_rows = batch_rows(batch, f.shape[0], f.device)
             surrogate = M.mas_surrogate(
                 self.cfg, f_proj, g_proj, model.joint.head_kernel[lang],
                 model.joint.head_bias[lang], ctc_logits,
-                activation=model.cfg.joint_activation, chunk_size=step_cfg.rnnt_chunk_size, row_mask=_row_mask(batch, f.device),
-                uniform_head=step_cfg.uniform_lang_head)
-        grads = _grads_by_name(surrogate, self.names, self.params)
+                activation=model.cfg.joint_activation, chunk_size=step_cfg.rnnt_chunk_size,
+                row_mask=row_mask, n_rows=n_rows, uniform_head=step_cfg.uniform_lang_head)
+        grads, _ = _global_grads(self.mesh, surrogate, self.names, self.params)
         return M.accumulate_importance(acc, grads)
 
     def end_task(self, acc, n_batches: int, total_utterances: int) -> None:
@@ -169,28 +171,33 @@ class LwFMethod(CLMethod):
         optimizer = self.optimizer
         params = optimizer.params
 
+        mesh = self.mesh
+
         def step(batch: dict, generator: torch.Generator) -> dict:
-            rngs = Rngs.from_host(generator, model.device)
-            rngs_teacher = Rngs.from_host(generator, model.device)
-            task_loss, aux, (fs, gs, ctc_s, hws, hbs) = hybrid_forward_loss(
-                model, step_cfg, batch, rngs, train=True, return_pieces=True)
-            row_mask = _row_mask(batch, fs.device)
-            # the teacher: a train-mode forward with its own draws
-            # (cl_baseline_lwf.py:227-228), its BatchNorm statistics fixed
-            with torch.no_grad(), batch_stats_frozen(teacher):
-                ft, gt, ctc_t, hwt, hbt, _, _ = hybrid_forward_tensors(
-                    teacher, step_cfg, batch["audio"], batch["audio_len"], batch["tokens"],
-                    batch["lang_ids"], rngs_teacher, True, batch.get("audio_len_host"))
-            ctc_kd = L.ctc_kd_loss(ctc_s, ctc_t, row_mask=row_mask)
+            with data_parallel(mesh, generator, model.device, model, teacher) as rngs:
+                rngs_teacher = rngs.fork()
+                task_loss, aux, (fs, gs, ctc_s, hws, hbs) = hybrid_forward_loss(
+                    model, step_cfg, batch, rngs, train=True, return_pieces=True)
+                # the teacher: a train-mode forward with its own draws
+                # (cl_baseline_lwf.py:227-228), its BatchNorm statistics fixed
+                with torch.no_grad(), batch_stats_frozen(teacher):
+                    ft, gt, ctc_t, hwt, hbt, _, _ = hybrid_forward_tensors(
+                        teacher, step_cfg, batch["audio"], batch["audio_len"],
+                        batch["tokens"], batch["lang_ids"], rngs_teacher, True,
+                        batch.get("audio_len_host"), batch.get("row0", 0))
+            row_mask, n_rows = batch_rows(batch, fs.shape[0], fs.device)
+            ctc_kd = L.ctc_kd_loss(ctc_s, ctc_t, row_mask=row_mask, n_rows=n_rows)
             rnnt_kd = L.joint_kd_chunked(
                 fs, gs, ft, gt, hws, hbs, hwt, hbt, activation=model.cfg.joint_activation,
                 chunk_size=step_cfg.rnnt_chunk_size,
                 faithful_raw_logits=lcfg.faithful_raw_logits, row_mask=row_mask,
-                uniform_head=step_cfg.uniform_lang_head)
+                n_rows=n_rows, uniform_head=step_cfg.uniform_lang_head)
             kd, ctx = lcfg.knowledge_distillation, lcfg.knowledge_distillation_ctx
             loss = (1 - kd) * task_loss + kd * ((1 - ctx) * rnnt_kd + ctx * ctc_kd)
             aux = dict(aux, train_loss=loss, rnnt_kd=rnnt_kd, ctc_kd=ctc_kd)
-            optimizer.step(list(torch.autograd.grad(loss, params, allow_unused=True)))
+            grads, aux = reduced(mesh, torch.autograd.grad(loss, params, allow_unused=True),
+                                 params, aux)
+            optimizer.step(list(grads))
             return {k: v.detach() for k, v in aux.items()}
 
         return step

@@ -66,6 +66,12 @@ class BucketSpec:
         )
 
 
+def shard_for_host(entries: Sequence[ManifestEntry], process_index: int,
+                   process_count: int) -> list[ManifestEntry]:
+    """Process ``process_index``'s strided share of ``entries``."""
+    return list(entries[process_index::process_count])
+
+
 def _assemble(
     entries: list[ManifestEntry],
     n_real: int,

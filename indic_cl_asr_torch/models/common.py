@@ -134,20 +134,40 @@ class Rngs:
     ``host`` is a CPU generator for what must be the same on every device:
     the SpecAugment bands and the attention kernel's per-layer dropout
     seeds. ``device`` lives on the model's device and draws the large
-    masks (dither, dropout). JAX keys and torch generators give different
-    numbers, so these draws match the JAX package in distribution, not in
-    value."""
+    masks (dither, dropout). ``rank`` is the data rank folded into the
+    device generator's seed and every kernel seed (``fold_rank``). JAX
+    keys and torch generators give different numbers, so these draws
+    match the JAX package in distribution, not in value; under two or more
+    data ranks the device draws match the one-process run in
+    distribution, not in value."""
 
     host: torch.Generator
     device: torch.Generator
+    rank: int = 0
 
     @classmethod
-    def from_host(cls, host: torch.Generator, device) -> "Rngs":
-        """A device generator seeded from one draw of ``host``."""
+    def from_host(cls, host: torch.Generator, device, rank: int = 0) -> "Rngs":
+        """A device generator seeded from one draw of ``host``, folded
+        with the data rank ``rank``."""
         dev = torch.Generator(device=torch.device(device))
-        dev.manual_seed(int(torch.randint(0, 2**62, (1,), generator=host)))
-        return cls(host=host, device=dev)
+        dev.manual_seed(fold_rank(int(torch.randint(0, 2**62, (1,), generator=host)), rank, 62))
+        return cls(host=host, device=dev, rank=rank)
+
+    def fork(self) -> "Rngs":
+        """Another step's Rngs from the same host generator and rank."""
+        return Rngs.from_host(self.host, self.device.device, self.rank)
 
     def seed(self) -> int:
-        """A 31-bit seed from ``host`` (one per attention layer and step)."""
-        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+        """A 31-bit seed from ``host`` (one per attention layer and step),
+        folded with the data rank."""
+        return fold_rank(int(torch.randint(0, 2**31 - 1, (1,), generator=self.host)),
+                         self.rank, 31)
+
+
+def fold_rank(seed: int, rank: int, bits: int) -> int:
+    """``seed`` for data rank ``rank``: unchanged at rank 0, distinct for
+    every rank. The host generator is the same on every rank (so are the
+    SpecAugment bands, drawn for the global batch), but the kernels hash
+    (seed, local row, ...) and the device generators draw local masks:
+    without the fold, row i of every rank would get the same dropout."""
+    return (seed ^ (rank * 0x9E3779B97F4A7C15)) & ((1 << bits) - 1)

@@ -283,13 +283,18 @@ class BatchNorm(nn.Module):
     E[x²] - E[x]² clipped at 0) and updates the stored ones in place,
     ``ra = momentum·ra + (1 - momentum)·batch``, unless ``update_stats`` is
     off (``batch_stats_frozen``): the JAX package's callers that discard
-    the ``batch_stats`` a train-mode forward returns."""
+    the ``batch_stats`` a train-mode forward returns. ``sum_over_ranks``
+    (set by train/step.py:data_parallel under a data mesh) maps this
+    rank's Σx and Σx² to the global batch's, differentiably, and gives
+    the number of ranks: the statistics are then the global batch's, the
+    same on every rank."""
 
     def __init__(self, C: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
         self.update_stats = True
+        self.sum_over_ranks = None
         self.weight = nn.Parameter(torch.ones(C))
         self.bias = nn.Parameter(torch.zeros(C))
         self.register_buffer("running_mean", torch.zeros(C))
@@ -298,8 +303,13 @@ class BatchNorm(nn.Module):
     def forward(self, x):  # [B, C, T]
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2)) - mean * mean, min=0.0)
+            sums = torch.stack([xf.sum(dim=(0, 2)), (xf * xf).sum(dim=(0, 2))])
+            n = xf.shape[0] * xf.shape[2]
+            if self.sum_over_ranks is not None:
+                sums, ranks = self.sum_over_ranks(sums)
+                n *= ranks
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum

@@ -68,6 +68,7 @@ def ctc_loss(
     reduction: str = "mean_batch",
     impl: str = "native",
     row_mask: torch.Tensor | None = None,  # bool [B]: real (non-repeat) rows
+    n_rows: int | None = None,  # real rows of the global batch (ops/rnnt_loss.py:_reduce)
 ):
     B, T, V1 = log_probs.shape
     if blank is None:
@@ -96,4 +97,4 @@ def ctc_loss(
     repeats = ((labels[:, 1:] == labels[:, :-1]) & valid_lbl).sum(dim=1)
     feasible = frame_lens >= label_lens + repeats
     nll = torch.where(feasible & torch.isfinite(nll), nll, 0.0)
-    return _reduce(nll, label_lens, reduction, row_mask)
+    return _reduce(nll, label_lens, reduction, row_mask, n_rows)

@@ -279,9 +279,25 @@ def rnnt_nll_from_logprobs_reference(lp_blank, lp_label, t_lens, u_lens):
     return _RNNTNLL.apply(lp_blank, lp_label, t_lens, u_lens, True)
 
 
-def _reduce(nll, label_lens, reduction: str, row_mask=None):
+def row_count(row_mask, n_rows, B: int):
+    """The divisor of every mean over a batch's rows: ``n_rows``, the real
+    rows of the global batch when these B rows are one data rank's share
+    (parallel/sharding.py: each rank sums its real rows over the global
+    count, so the sum over the ranks is the global mean, and a share of
+    padding rows only gives 0); else the real rows ``row_mask`` marks;
+    else B."""
+    if n_rows is not None:
+        return max(int(n_rows), 1)
+    if row_mask is not None:
+        return row_mask.sum().clamp(min=1)
+    return B
+
+
+def _reduce(nll, label_lens, reduction: str, row_mask=None, n_rows=None):
     """Reduce per-row NLLs. ``row_mask`` (bool [B]) marks REAL rows; the
-    repeat rows that pad a bucket's last batch are left out."""
+    repeat rows that pad a bucket's last batch are left out, and the
+    per-row means ("mean_batch", "mean") divide by ``row_count(row_mask, n_rows, B)``
+    (``n_rows`` comes with ``row_mask``: train/step.py:batch_rows)."""
     if reduction is None or reduction == "none":
         return nll
     label_lens = label_lens.to(nll.device)
@@ -297,7 +313,7 @@ def _reduce(nll, label_lens, reduction: str, row_mask=None):
         raise ValueError(reduction)
     row_mask = row_mask.to(nll.device)
     nll = torch.where(row_mask, nll, 0.0)
-    n = row_mask.to(nll.dtype).sum().clamp(min=1.0)
+    n = row_count(row_mask.to(nll.dtype), n_rows, nll.shape[0])
     if reduction == "mean_batch":
         return nll.sum() / n
     if reduction == "sum":

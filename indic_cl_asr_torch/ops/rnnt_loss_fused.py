@@ -48,7 +48,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..models.common import activate, dropout_keep_mask
+from ..models.common import activate, dropout_keep_mask, fold_rank
 from .joint_fused import joint_slabs
 from .rnnt_loss import _reduce, rnnt_nll_from_logprobs
 
@@ -165,12 +165,17 @@ def rnnt_loss_fused(
     row_mask: torch.Tensor | None = None,  # bool [B]: real (non-repeat) rows
     uniform_head: bool = False,
     remat: str = "full",
+    n_rows: int | None = None,
+    seed_rank: int = 0,
 ):
     """Joint + RNNT loss; differentiable in f_proj, g_proj, head_w and
     head_b. ``impl="xla"``: the chunked joint, its dropout masks (8-bit,
     models/common.py) drawn from ``generator`` on the projections' device.
     ``impl="pallas"``: the fused joint kernels, their dropout seed drawn
-    from the CPU ``host_generator``."""
+    from the CPU ``host_generator`` and folded with the data rank
+    ``seed_rank`` (models/common.py:fold_rank). ``n_rows`` is the real
+    rows of the global batch when these rows are one data rank's share
+    (ops/rnnt_loss.py:_reduce)."""
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r}: one of {IMPLS}")
     if remat not in REMATS:
@@ -189,12 +194,13 @@ def rnnt_loss_fused(
                 "backward. A/B the remat knob with impl='xla'.", stacklevel=2)
         seed = 0
         if host_generator is not None and dropout_rate > 0.0:
-            seed = int(torch.randint(0, 2**31 - 1, (1,), generator=host_generator))
+            seed = fold_rank(int(torch.randint(0, 2**31 - 1, (1,), generator=host_generator)),
+                             seed_rank, 31)
         lp_blank, lp_label = joint_slabs(f_proj, g_proj, head_w, head_b, labels_pad, seed,
                                          blank=blank, dropout_rate=dropout_rate)
         nll = rnnt_nll_from_logprobs(lp_blank, lp_label, frame_lens.to(dev, torch.int32),
                                      label_lens.to(dev, torch.int32))
-        return _reduce(nll, label_lens, reduction, row_mask)
+        return _reduce(nll, label_lens, reduction, row_mask, n_rows)
     n_chunks = -(-T // chunk_size)
     T_pad = n_chunks * chunk_size
     if T_pad != T:
@@ -236,4 +242,4 @@ def rnnt_loss_fused(
         lp_blank, lp_label, frame_lens.to(dev, torch.int32),
         label_lens.to(dev, torch.int32),
     )
-    return _reduce(nll, label_lens, reduction, row_mask)
+    return _reduce(nll, label_lens, reduction, row_mask, n_rows)

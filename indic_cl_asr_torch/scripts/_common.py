@@ -12,17 +12,25 @@ data, tokenizer, model, optimizer, logger, checkpointer. Data comes from
 
 Besides the config's leaves every driver takes ``--notes`` and
 ``--device`` (default ``cuda``; ``--device cpu`` runs the plain PyTorch
-path, and without a card nothing runs unless it is given). What the port
-does not have yet raises ``NotImplementedError`` naming its ROADMAP item:
-a device mesh other than 1 x 1 and ``INDIC_ASR_MULTIHOST=1``.
+path, and without a card nothing runs unless it is given).
 ``model.scan_layers`` is accepted and ignored: the port has one layer
 layout.
+
+Several processes, one device each: ``INDIC_ASR_MULTIHOST=1`` joins the
+process group, from ``INDIC_ASR_COORDINATOR`` (host:port),
+``INDIC_ASR_NUM_PROCESSES`` and ``INDIC_ASR_PROCESS_ID``, or else from
+torchrun's variables (NCCL on ``--device cuda``, gloo on ``cpu``);
+``--mesh.data N`` (0: every process) trains data parallel over N of them.
+The main process writes the synthetic data, ``config.json`` and the
+tokenizer, the others wait at a barrier. ``--mesh.model`` above 1 raises
+``NotImplementedError``: the model axis is not ported (ROADMAP §1).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import sys
 
 import torch
 
@@ -34,6 +42,8 @@ from ..data.tokenizer import CharTokenizer, MultilingualTokenizer
 from ..device import resolve_device
 from ..models.conformer import ConformerConfig
 from ..models.hybrid import HybridModelConfig, HybridRNNTCTC, init_weights_
+from ..parallel.distributed import barrier, is_main_process, process_count, setup_distributed
+from ..parallel.sharding import make_mesh
 from ..train.driver import LANGUAGES, DriverConfig, TaskData, run_sequence
 from ..train.logger import Logger
 from ..train.state import make_optimizer
@@ -56,9 +66,15 @@ def setup(argv=None, config_path: str | None = None, notes_default: str = "",
         },
     )
     if os.environ.get("INDIC_ASR_MULTIHOST") == "1":
-        raise NotImplementedError(
-            "INDIC_ASR_MULTIHOST=1: multi-process runs are not ported "
-            "(ROADMAP §1 item 5, parallel/distributed.py)")
+        env = os.environ
+        pidx, pcount = setup_distributed(
+            coordinator_address=env.get("INDIC_ASR_COORDINATOR"),
+            num_processes=(int(env["INDIC_ASR_NUM_PROCESSES"])
+                           if env.get("INDIC_ASR_NUM_PROCESSES") else None),
+            process_id=(int(env["INDIC_ASR_PROCESS_ID"])
+                        if env.get("INDIC_ASR_PROCESS_ID") else None),
+            auto_init=True, device=ns.device)
+        print(f"# multihost: process {pidx}/{pcount}", file=sys.stderr)
     return cfg, ns
 
 
@@ -102,9 +118,14 @@ def build_data(cfg, languages) -> dict[str, TaskData]:
 def build_synthetic_data(cfg, languages) -> dict[str, TaskData]:
     from ..data.synth import make_wav_dataset
 
+    root = os.path.join(cfg.output_dir, "synthetic_data")
     n = int(cfg.get("synthetic_utts", 8))
-    data = make_wav_dataset(os.path.join(cfg.output_dir, "synthetic_data"), languages,
-                            n_per_lang=n * 3)
+    # a shared output dir: one writer; the others read its manifests
+    if is_main_process():
+        data = make_wav_dataset(root, languages, n_per_lang=n * 3)
+    barrier("synthetic data")
+    if not is_main_process():
+        data = {lang: read_manifest(os.path.join(root, f"{lang}.jsonl")) for lang in languages}
     out = {}
     for lang in languages:
         es = data[lang]
@@ -132,7 +153,9 @@ def build_tokenizer(cfg, languages, task_data) -> MultilingualTokenizer:
         t._piece_to_id = {p: i for i, p in enumerate(t.vocab)}
     agg = MultilingualTokenizer(toks)
     if tok_dir:
-        agg.save(tok_dir)
+        if is_main_process():
+            agg.save(tok_dir)
+        barrier("tokenizer")
     return agg
 
 
@@ -168,13 +191,27 @@ def build_model_cfg(cfg, tokenizer, languages) -> HybridModelConfig:
     )
 
 
-def build_all(cfg, ns) -> dict:
+def build_mesh(cfg):
+    """``--mesh.data N --mesh.model M`` (data 0: every process / M); None
+    for 1 x 1, the one-process path."""
     mc = cfg.get("mesh", {})
-    if int(mc.get("data", 1)) != 1 or int(mc.get("model", 1)) != 1:
+    n_data, n_model = int(mc.get("data", 1)), int(mc.get("model", 1))
+    if n_model > 1:
         raise NotImplementedError(
-            f"mesh data={mc.get('data')} x model={mc.get('model')}: data- and "
-            "tensor-parallel training is not ported (ROADMAP §1 item 5); use 1 x 1")
+            f"mesh model={n_model}: tensor-parallel training is not ported (ROADMAP §1, "
+            "the model axis)")
+    if n_data == 1 and n_model == 1:
+        return None
+    mesh = make_mesh(n_data=None if n_data == 0 else n_data, n_model=n_model)
+    print(f"# mesh: data={mesh.n_data} x model={mesh.n_model}", file=sys.stderr)
+    return mesh
+
+
+def build_all(cfg, ns) -> dict:
+    mesh = build_mesh(cfg)
     device = resolve_device(ns.device)
+    if device.type == "cuda" and device.index is None and process_count() > 1:
+        device = torch.device("cuda", torch.cuda.current_device())  # this process's card
     languages = build_languages(cfg)
     task_data = build_data(cfg, languages)
     tokenizer = build_tokenizer(cfg, languages, task_data)
@@ -210,10 +247,13 @@ def build_all(cfg, ns) -> dict:
                     wandb_kwargs={"notes": ns.notes, "config": cfg.to_dict()})
     logger.log({"config": cfg.to_dict(), "notes": ns.notes})
     # a self-contained run dir: the resolved config and the tokenizer next
-    # to the checkpoints, so transcribe.py restores any run from it alone
-    with open(os.path.join(logger.dir, "config.json"), "w") as f:
-        json.dump(cfg.to_dict(), f, indent=2, default=str)
-    tokenizer.save(os.path.join(logger.dir, "tokenizer"))
+    # to the checkpoints, so transcribe.py restores any run from it alone;
+    # the run dir is shared by the process group: one writer
+    if is_main_process():
+        with open(os.path.join(logger.dir, "config.json"), "w") as f:
+            json.dump(cfg.to_dict(), f, indent=2, default=str)
+        tokenizer.save(os.path.join(logger.dir, "tokenizer"))
+    barrier("run dir")
 
     driver_cfg = DriverConfig(
         batch_size=cfg.batch_size,
@@ -232,6 +272,7 @@ def build_all(cfg, ns) -> dict:
         cfg=cfg, languages=languages, task_data=task_data, tokenizer=tokenizer,
         model_cfg=model_cfg, model=model, optimizer=optimizer, step_cfg=step_cfg,
         logger=logger, driver_cfg=driver_cfg, checkpointer=checkpointer, device=device,
+        mesh=mesh,
     )
 
 
@@ -243,7 +284,7 @@ def run(ctx: dict, method) -> dict:
         optimizer=ctx["optimizer"], method=method, task_data=ctx["task_data"],
         tokenizer=ctx["tokenizer"], logger=ctx["logger"],
         checkpointer=ctx["checkpointer"], languages=ctx["languages"],
-        device=ctx["device"],
+        device=ctx["device"], mesh=ctx["mesh"],
     )
     ctx["logger"].close()
     return results

@@ -28,6 +28,8 @@ import torch
 from ..data.manifest import ManifestEntry
 from ..data.pipeline import BatchPipeline, BucketSpec
 from ..device import resolve_device
+from ..parallel.distributed import barrier, is_main_process
+from ..parallel.sharding import place_batch
 from ..utils.checkpoint import SequenceCheckpointer, save_partial
 from . import metrics as M
 from .eval import Transcriber, run_eval
@@ -54,9 +56,12 @@ class TaskData:
 
 
 class CLMethod:
-    """Interface of the CL algorithms the driver runs (naive by default)."""
+    """Interface of the CL algorithms the driver runs (naive by default).
+    ``mesh`` is the run's data mesh (None: one process), set by
+    ``run_sequence`` for the steps and importance batches it builds."""
 
     name = "naive"
+    mesh = None
 
     def penalty_fn(self, task_idx: int):
         """Penalty hook of the train step ({name: param} -> (loss, grads))."""
@@ -126,10 +131,14 @@ def run_sequence(
     ones). Returns {"val": {lang: [perf record per task]}, "test": ...}.
 
     ``device`` defaults to the CUDA card and must be the model's (``"cpu"``
-    for the plain path). ``mesh`` must be None: data- and tensor-parallel
-    runs are not ported."""
-    if mesh is not None:
-        raise NotImplementedError("run_sequence on a device mesh is not ported; pass mesh=None")
+    for the plain path).
+
+    ``mesh`` (parallel/sharding.py:make_mesh, one process a device): every
+    process runs this same loop over the identical global batches, keeps
+    its rows of each (``place_batch``) and steps data parallel; eval and
+    the importance epochs' counts are replicated. The main process writes
+    the partial weights and the task checkpoints, then a barrier; a
+    resume loads on every process."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, run_sequence asked for {dev}")
@@ -141,9 +150,10 @@ def run_sequence(
     val_performance: dict[str, list] = {l: [] for l in languages}
     test_performance: dict[str, list] = {l: [] for l in languages}
     root = torch.Generator().manual_seed(cfg.seed)
+    method.mesh = mesh
 
     def base_builder(penalty_fn):
-        return make_train_step(model, step_cfg, optimizer, penalty_fn, device=dev)
+        return make_train_step(model, step_cfg, optimizer, penalty_fn, device=dev, mesh=mesh)
 
     start_idx = 0
     if checkpointer is not None:
@@ -166,7 +176,9 @@ def run_sequence(
                 "uniform_lang_head=True but the batch mixes languages "
                 f"({sorted(set(b.lang_ids.tolist()))}); set "
                 "uniform_lang_head=False for mixed batches")
-        return batch_to_device_dict(b, dev)
+        if mesh is None:
+            return batch_to_device_dict(b, dev)
+        return place_batch(batch_to_device_dict(b, "cpu"), mesh, dev)
 
     for lang_idx in range(start_idx, len(languages)):
         lang = languages[lang_idx]
@@ -215,8 +227,11 @@ def run_sequence(
                 logger.log({f"bwt/{l}": b, "bwt_task": t})
         logger.log_bwt_curves(curves)
 
-        if cfg.save_weights and logger.rank == 0:
-            save_partial(f"{logger.dir}/model_{lang}.npz", model, optimizer.names)
+        if cfg.save_weights:
+            # the parameters are the same on every process: one writer
+            if is_main_process():
+                save_partial(f"{logger.dir}/model_{lang}.npz", model, optimizer.names)
+            barrier("partial save")
         if checkpointer is not None:
             checkpointer.save_task(lang_idx, lang, model, optimizer, val_performance,
                                    method_state=method.export_state())

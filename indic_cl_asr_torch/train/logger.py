@@ -6,8 +6,9 @@ Port of indic_cl_asr_tpu/train/logger.py (reference utils.py:7-53
 when a run could be started; plain numbers are accumulated and re-logged
 as ``epoch_avg_*`` by ``log_epoch_average()``; ``log_bwt_curves`` writes
 ``bwt_curves.json``. Rank 0 of an initialised ``torch.distributed`` group
-owns the canonical files and wandb; other ranks write rank-suffixed
-streams into the same directory.
+owns the canonical files and wandb and draws the run id, which it
+broadcasts; other ranks write rank-suffixed streams into the same
+directory.
 """
 
 from __future__ import annotations
@@ -17,11 +18,7 @@ import os
 import time
 import uuid
 
-
-def _rank() -> int:
-    import torch.distributed as dist
-
-    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+from ..parallel.distributed import broadcast_from_main, process_index
 
 
 class Logger:
@@ -32,8 +29,9 @@ class Logger:
         use_wandb: bool = True,
         wandb_kwargs: dict | None = None,
     ):
-        self.rank = _rank()
-        self.run_id = run_id or uuid.uuid4().hex[:8]
+        self.rank = process_index()
+        # one run dir for the whole group: process 0's id, broadcast
+        self.run_id = run_id or broadcast_from_main(uuid.uuid4().hex[:8])
         self.dir = os.path.join(output_dir, self.run_id)
         os.makedirs(self.dir, exist_ok=True)
         sfx = "" if self.rank == 0 else f".rank{self.rank}"

@@ -17,23 +17,35 @@ it, so every device sees the same ones; dither and the dropout masks are
 drawn on a device generator seeded from it. JAX keys and torch generators
 give different numbers: the port matches the JAX package's draws in
 distribution, not in value.
+
+Under a data mesh (parallel/sharding.py) each rank holds its rows of the
+global batch: the SpecAugment bands are drawn for the global batch and
+each rank keeps its rows; every loss sums this rank's valid rows over the
+global count; BatchNorm takes the global batch's statistics; the
+gradients and the logged losses are summed over the data ranks in one
+all-reduce, and a CL penalty enters once. The data rank is folded into
+every kernel seed and the device generator's seed (models/common.py:
+fold_rank), so a mesh of one is bit-identical to no mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable
 
 import torch
 
 from ..audio.features import FrontendConfig, log_mel_spectrogram, output_seq_len
-from ..audio.spec_augment import SpecAugmentConfig, spec_augment
+from ..audio.spec_augment import SpecAugmentConfig, apply_bands, draw_bands
 from ..device import resolve_device
 from ..models.common import Rngs
+from ..models.conformer import BatchNorm
 from ..ops.ctc_loss import IMPLS as CTC_IMPLS
 from ..ops.ctc_loss import ctc_loss
 from ..ops.rnnt_loss_fused import IMPLS as RNNT_IMPLS
 from ..ops.rnnt_loss_fused import REMATS, rnnt_loss_fused
+from ..parallel.sharding import all_reduce_sum, reduce_sum
 from .state import AdamW
 
 
@@ -69,7 +81,9 @@ class StepConfig:
 def batch_to_device_dict(batch, device) -> dict:
     """A data/pipeline.py Batch -> the step's dict of tensors on ``device``
     (plus ``audio_len_host``, the sample counts on the CPU, from which the
-    SpecAugment bands are drawn without waiting on the device)."""
+    SpecAugment bands are drawn without waiting on the device). The dict
+    is the global batch; parallel/sharding.py:place_batch keeps a data
+    rank's rows of it, and ``audio_len_host`` stays the global batch's."""
     dev = torch.device(device)
     as_t = lambda a: torch.from_numpy(a).to(dev, non_blocking=True)  # noqa: E731
     return {
@@ -83,12 +97,25 @@ def batch_to_device_dict(batch, device) -> dict:
     }
 
 
+def batch_rows(batch: dict, B: int, device):
+    """(row_mask, n_rows) of a batch dict holding B rows from global row
+    ``batch["row0"]`` (0 when absent): which of them are real, and the
+    real rows of the global batch (``n_valid``), the divisor of every
+    per-row mean. (None, None) without ``n_valid``."""
+    if batch.get("n_valid") is None:
+        return None, None
+    row0, n_valid = int(batch.get("row0", 0)), int(batch["n_valid"])
+    return torch.arange(row0, row0 + B, device=device) < n_valid, n_valid
+
+
 def hybrid_forward_tensors(model, step_cfg: StepConfig, audio, audio_lens,
                            tokens, lang_ids, rngs: Rngs | None, train: bool,
-                           audio_lens_host=None):
+                           audio_lens_host=None, row0: int = 0):
     """Shared forward: mel (+ dither and SpecAugment when training) ->
     encoder -> prediction net -> joint projections, the per-sample language
-    head slices and the CTC log-probs.
+    head slices and the CTC log-probs. ``audio_lens_host`` may be the
+    global batch's lengths, of which these rows start at ``row0``: the
+    SpecAugment bands are drawn for all of them.
 
     Returns (f_proj, g_proj, ctc_lp, head_w, head_b, f, enc_lens). In train
     mode BatchNorm statistics are updated in the model's buffers."""
@@ -102,7 +129,10 @@ def hybrid_forward_tensors(model, step_cfg: StepConfig, audio, audio_lens,
             raise ValueError("SpecAugment in train mode needs rngs")
         host_lens = (audio_lens if audio_lens_host is None else audio_lens_host).cpu()
         mel_host_lens = output_seq_len(host_lens.to(torch.int64), step_cfg.frontend)
-        mel = spec_augment(mel, mel_host_lens, rngs.host, step_cfg.spec_augment)
+        bands = draw_bands(mel_host_lens, mel.shape[1], step_cfg.spec_augment, rngs.host)
+        rows = slice(row0, row0 + mel.shape[0])
+        mel = apply_bands(mel, *(b[rows] for b in bands),
+                          mask_value=step_cfg.spec_augment.mask_value)
     f, enc_lens = model.encode(mel, mel_lens, rngs)
     g, _ = model.predict(tokens, add_sos=True, rngs=rngs)
     f_proj, g_proj = model.joint_project(f, g)
@@ -123,12 +153,9 @@ def hybrid_forward_loss(model, step_cfg: StepConfig, batch: dict,
     tensors of this very forward that LwF distils."""
     f_proj, g_proj, ctc_lp, head_w, head_b, _, enc_lens = hybrid_forward_tensors(
         model, step_cfg, batch["audio"], batch["audio_len"], batch["tokens"],
-        batch["lang_ids"], rngs, train, batch.get("audio_len_host"),
+        batch["lang_ids"], rngs, train, batch.get("audio_len_host"), batch.get("row0", 0),
     )
-    B = f_proj.shape[0]
-    row_mask = None
-    if batch.get("n_valid") is not None:
-        row_mask = torch.arange(B, device=f_proj.device) < int(batch["n_valid"])
+    row_mask, n_rows = batch_rows(batch, f_proj.shape[0], f_proj.device)
     cfg = model.cfg
     tokens, token_len = batch["tokens"], batch["token_len"]
     rnnt = rnnt_loss_fused(
@@ -140,9 +167,11 @@ def hybrid_forward_loss(model, step_cfg: StepConfig, batch: dict,
         host_generator=rngs.host if rngs is not None else None,
         impl=step_cfg.rnnt_impl, row_mask=row_mask,
         uniform_head=step_cfg.uniform_lang_head, remat=step_cfg.rnnt_remat,
+        n_rows=n_rows, seed_rank=rngs.rank if rngs is not None else 0,
     )
     ctc = ctc_loss(ctc_lp, enc_lens, tokens, token_len, blank=cfg.blank_local,
-                   reduction="mean_batch", impl=step_cfg.ctc_impl, row_mask=row_mask)
+                   reduction="mean_batch", impl=step_cfg.ctc_impl, row_mask=row_mask,
+                   n_rows=n_rows)
     w = step_cfg.ctc_loss_weight
     loss = (1.0 - w) * rnnt + w * ctc
     aux = {"train_rnnt_loss": rnnt, "train_ctc_loss": ctc, "train_loss": loss}
@@ -151,8 +180,40 @@ def hybrid_forward_loss(model, step_cfg: StepConfig, batch: dict,
     return loss, aux
 
 
+@contextlib.contextmanager
+def data_parallel(mesh, generator: torch.Generator, device, *models):
+    """The data-parallel state of one train-mode forward, in one place:
+    yields the forward's ``Rngs`` (one draw of ``generator``, this data
+    rank folded in), and inside, the BatchNorms of ``models`` take the
+    global batch's statistics over ``mesh``'s data ranks. Without a mesh,
+    the Rngs of rank 0 and the local statistics."""
+    rank = 0 if mesh is None else mesh.data_rank
+    rngs = Rngs.from_host(generator, device, rank)
+    norms = [m for model in models for m in model.modules() if isinstance(m, BatchNorm)]
+    if mesh is not None:
+        for m in norms:
+            m.sum_over_ranks = lambda sums: (all_reduce_sum(sums, mesh), mesh.n_data)
+    try:
+        yield rngs
+    finally:
+        for m in norms:
+            m.sum_over_ranks = None
+
+
+def reduced(mesh, grads, params, aux: dict):
+    """(grads, aux) summed over ``mesh``'s data ranks in one all-reduce:
+    this rank's gradients (None for an unused parameter: zeros) and its
+    share of every loss in ``aux``. Without a mesh: unchanged."""
+    if mesh is None:
+        return grads, aux
+    keys = list(aux)
+    out = reduce_sum(mesh, list(grads) + [aux[k] for k in keys],
+                     list(params) + [aux[k] for k in keys])
+    return out[:len(grads)], dict(zip(keys, out[len(grads):]))
+
+
 def make_train_step(model, step_cfg: StepConfig, optimizer: AdamW,
-                    penalty_fn: Callable | None = None, device=None):
+                    penalty_fn: Callable | None = None, device=None, mesh=None):
     """Build ``step(batch, generator) -> aux``: one forward, backward and
     AdamW update of ``model`` in place. ``generator`` is the step's CPU
     torch.Generator. ``device`` defaults to the CUDA card and must be the
@@ -164,21 +225,31 @@ def make_train_step(model, step_cfg: StepConfig, optimizer: AdamW,
     explicit gradients (EWC's, a dict by name) are added after the
     backward, their global norm reported as ``penalty_gnorm``. The aux
     values are 0-d tensors on the device (reading them waits for the
-    step)."""
+    step).
+
+    ``mesh`` (parallel/sharding.py:make_mesh) makes the step data
+    parallel: ``batch`` is this rank's rows (``place_batch``), BatchNorm
+    takes the global batch's statistics, and the gradients and aux losses
+    are summed over the data ranks; the replicated penalty enters once
+    (a scalar one divided by the data size before the sum, explicit
+    gradients added after it)."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, step asked for {dev}")
     names, params = optimizer.names, optimizer.params
 
     def step(batch: dict, generator: torch.Generator) -> dict:
-        rngs = Rngs.from_host(generator, model.device)
-        loss, aux = hybrid_forward_loss(model, step_cfg, batch, rngs, train=True)
-        extra = None
+        with data_parallel(mesh, generator, model.device, model) as rngs:
+            loss, aux = hybrid_forward_loss(model, step_cfg, batch, rngs, train=True)
+        pen = extra = None
         if penalty_fn is not None:
             pen, extra = penalty_fn(dict(zip(names, params)))
-            loss = loss + pen
-            aux = dict(aux, penalty=pen, train_loss=loss)
-        grads = list(torch.autograd.grad(loss, params, allow_unused=True))
+            loss = loss + (pen if mesh is None else pen / mesh.n_data)
+        grads, aux = reduced(mesh, torch.autograd.grad(loss, params, allow_unused=True),
+                             params, aux)
+        grads = list(grads)
+        if pen is not None:
+            aux = dict(aux, penalty=pen, train_loss=aux["train_loss"] + pen)
         if extra is not None:
             pg = [extra.get(n) for n in names]
             aux["penalty_gnorm"] = torch.sqrt(sum(

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models.convert import named_state_dict
+from ..parallel.distributed import barrier, is_main_process
 
 
 def save_partial(path: str, model: torch.nn.Module, names) -> None:
@@ -112,7 +113,14 @@ class SequenceCheckpointer:
     def save_task(self, task_idx: int, lang: str, model: torch.nn.Module, optimizer,
                   val_performance: dict, method_state: Any | None = None) -> None:
         """Checkpoint the model (parameters and BatchNorm statistics), the
-        AdamW state and the CL method's state, then record the task."""
+        AdamW state and the CL method's state, then record the task. Under
+        a process group the main process writes (the state is the same on
+        every one) and every process waits for it at a barrier."""
+        if is_main_process():
+            self._write_task(task_idx, lang, model, optimizer, val_performance, method_state)
+        barrier("save task")
+
+    def _write_task(self, task_idx, lang, model, optimizer, val_performance, method_state):
         torch.save({
             "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
             "optimizer": {

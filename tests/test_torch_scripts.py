@@ -10,7 +10,9 @@ exact:
     the JAX trainable mask (mapped through models/convert.py), AdamW
     hyperparameters, StepConfig, BucketSpec and DriverConfig (the causal
     conv and Longformer options included); what the port lacks raises
-    ``NotImplementedError``;
+    ``NotImplementedError`` (the model axis) or ``ValueError`` (a data
+    axis beyond the process group, a multi-process launch without its
+    rendezvous);
   * checkpoints: JAX partial saves in both encoder layouts (one without
     the frozen layers) through ``load_partial``, the port's own saves
     round-tripped, an unknown name raising;
@@ -213,14 +215,21 @@ def test_build_model_cfg_matches(tmp_path, argv, config):
         assert pm.encoder.attn_impl == "xla"
 
 
-@pytest.mark.parametrize("argv,env", [
-    (["--mesh.data", "2"], None), (["--mesh.model", "2"], None), (["--mesh.data", "0"], None),
-    ([], "1"),
+@pytest.mark.parametrize("argv,env,error", [
+    (["--mesh.data", "2"], None, ValueError), (["--mesh.model", "2"], None, NotImplementedError),
+    (["--mesh.data", "0", "--mesh.model", "2"], None, NotImplementedError),
+    ([], "1", ValueError),
 ], ids=["mesh_data", "mesh_model", "mesh_all_devices", "multihost"])
-def test_what_the_port_lacks_raises(tmp_path, monkeypatch, argv, env):
+def test_what_the_port_lacks_raises(tmp_path, monkeypatch, argv, env, error):
+    """The model axis is not ported; a data axis larger than the process
+    group, and INDIC_ASR_MULTIHOST=1 with neither a coordinator nor
+    torchrun's variables, are refused (tests/test_torch_distributed.py
+    runs the data axis)."""
     if env:
         monkeypatch.setenv("INDIC_ASR_MULTIHOST", env)
-    with pytest.raises(NotImplementedError):
+        for var in ("INDIC_ASR_COORDINATOR", "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
+            monkeypatch.delenv(var, raising=False)
+    with pytest.raises(error):
         cl_baseline.main(TINY + XLA + argv + ["--synthetic", "true", "--device", "cpu",
                                               "--output_dir", str(tmp_path)])
 
