@@ -2421,18 +2421,20 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def dp_setup(dev, init=None):
+def dp_setup(dev, init=None, mesh=None):
     """Phase 9's data-parallel flagship: phase 8's model (bf16, flash
     attention, layers 0-11 frozen, AdamW lr 1e-4) with dropout and dither
     off, so that two ranks and one process draw nothing that differs;
     SpecAugment on, the pallas joint. Seeded weights, or the config and
-    weights ``init`` holds (``torch.save({"cfg", "state"})``)."""
+    weights ``init`` holds (``torch.save({"cfg", "state"})``); split over
+    ``mesh``'s model axis (``shard_model``) before AdamW is built."""
     import dataclasses
 
     import torch
 
     from indic_cl_asr_torch.audio.features import FrontendConfig
     from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC, flagship_config, init_weights_
+    from indic_cl_asr_torch.parallel.sharding import shard_model
     from indic_cl_asr_torch.train.state import make_optimizer
     from indic_cl_asr_torch.train.step import StepConfig
 
@@ -2447,6 +2449,8 @@ def dp_setup(dev, init=None):
         saved = torch.load(init, weights_only=False)
         model = HybridRNNTCTC(saved["cfg"], device=dev)
         model.load_state_dict(saved["state"])
+    if mesh is not None:
+        shard_model(model, mesh)
     opt = make_optimizer(model, lr=1e-4, weight_decay=0.01,
                          freeze_encoder_till=model.cfg.encoder.frozen_till, device=dev)
     step_cfg = StepConfig(frontend=FrontendConfig(dither=0.0), rnnt_chunk_size=64,
@@ -2464,6 +2468,23 @@ def dp_step_result(model, opt, aux):
             "trainable": list(opt.names)}
 
 
+def tp_step_result(model, opt, aux):
+    """``dp_step_result`` of a model split over a model axis: the state
+    and the first moment gathered whole; and this rank's whole tensors
+    (the parameters not split, the statistics) as it holds them."""
+    from indic_cl_asr_torch.parallel import sharding as S
+
+    state = S.gather_state(model, opt)
+    split = {n for n, p in model.named_parameters() if S.split_of(p) is not None}
+    return {"aux": {k: float(v) for k, v in aux.items()},
+            "state": {k: v.float().cpu() for k, v in state["model"].items()},
+            "grad": {n: (m / 0.1).float().cpu() for n, m in zip(opt.names, state["mu"])},
+            "trainable": list(opt.names),
+            "whole": {k: v.detach().cpu() for k, v in model.state_dict().items()
+                      if k not in split},
+            "split": sorted(split)}
+
+
 # the two-rank check's steps: the saved weights of each, bf16 and f32
 DP_INITS = {"bf16": "init.pt", "f32": "init_f32.pt"}
 
@@ -2472,13 +2493,19 @@ def dp_rank_main(rank, port, root, device) -> int:
     """One rank of phase 9's two-rank check (``chip_smoke.py --dp-rank R
     PORT DIR DEVICE``): gloo on DEVICE (cuda:0) beside the other rank, one
     step on this rank's 8 rows of the saved B16 batch from each of
-    ``DP_INITS`` (f32 with TF32 off); writes its results to DIR."""
+    ``DP_INITS`` (f32 with TF32 off) on the 2 x 1 mesh; then on the 1 x 2
+    mesh one step of each on all 16 rows, the model split (the training
+    kernels' launches counted from 0 around each step, the flash
+    forward's head counts recorded), and the bf16 one written as a whole
+    checkpoint (``save_model``); writes its results to DIR."""
     import torch
 
     sys.path.insert(0, ROOT)
+    from indic_cl_asr_torch.models import conformer as C
     from indic_cl_asr_torch.parallel import distributed as D
     from indic_cl_asr_torch.parallel import sharding as S
     from indic_cl_asr_torch.train.step import make_train_step
+    from indic_cl_asr_torch.utils.checkpoint import save_model
 
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2498,6 +2525,38 @@ def dp_rank_main(rank, port, root, device) -> int:
             torch.cuda.synchronize()
         out[dtype] = dict(dp_step_result(model, opt, aux), step_s=time.perf_counter() - t0,
                           counts=dict(S.COUNTS))
+        del model, opt, step
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    # the model axis: 1 x 2, each rank all 16 rows, the model split
+    tp = S.make_mesh(1, 2)
+    batch = S.place_batch(torch.load(os.path.join(root, "batch.pt")), tp, dev)
+    heads, flash = [], C.flash_relpos_mhsa
+
+    def flash_heads(*a, **k):  # the heads each flash forward runs at
+        heads.append(k["n_heads"])
+        return flash(*a, **k)
+
+    C.flash_relpos_mhsa = flash_heads
+    out["tp"] = {"rows": int(batch["audio"].shape[0]), "row0": batch["row0"],
+                 "mesh": (tp.data_rank, tp.model_rank)}
+    for dtype, init in DP_INITS.items():
+        model, opt, step_cfg = dp_setup(dev, os.path.join(root, init), mesh=tp)
+        step = make_train_step(model, step_cfg, opt, device=dev, mesh=tp)
+        heads.clear()
+        S.COUNTS.clear()
+        reset_training_counts()
+        t0 = time.perf_counter()
+        aux = step(batch, torch.Generator().manual_seed(0))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        launches, counts = training_counts(), dict(S.COUNTS)  # the step's alone
+        out["tp"][dtype] = dict(tp_step_result(model, opt, aux), step_s=step_s,
+                                counts=counts, launches=launches,
+                                flash_heads=sorted(set(heads)), flash_calls=len(heads))
+        if dtype == "bf16":
+            save_model(os.path.join(root, "tp_model.pt"), model)
         del model, opt, step
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -2624,6 +2683,40 @@ def check_two_ranks(dev, rec, tasks, tok):
         ones.append(dp_step_result(model, opt, aux))
         del model, opt
     torch.cuda.empty_cache()
+
+    out = compare_two_ranks(ranks, ones, t_check)
+    rec["two_ranks"] = out
+    log(f"  two ranks (gloo on cuda:0, 8 rows each of B16, rnnt_impl 'pallas', SpecAugment on; "
+        f"bf16 and f32): {json.dumps(out)}")
+    if not (out["ranks_equal"] and out["rows"] == [8, 8] and out["f32"]["worst_ratio"] <= 1.0
+            and max(out["bf16_ratio_to_bar"].values()) <= 1.0 and not out["frozen_changed"]):
+        raise AssertionError(f"two ranks against one process: {out}")
+    tp = compare_two_ranks([r["tp"] for r in ranks], ones, t_check)
+    rec["model_axis"] = tp = check_model_axis(dev, ranks, tp, tok, tasks, root)
+    log(f"  model axis (1 x 2: gloo on cuda:0, each rank all 16 rows, the encoder split over "
+        f"4 heads a rank, heads and prediction net gathered at use; bf16 and f32): "
+        f"{json.dumps(tp)}")
+    if not (tp["ranks_equal"] and tp["whole_equal"] and tp["rows"] == [16, 16]
+            and tp["f32"]["worst_ratio"] <= 1.0
+            and max(tp["bf16_ratio_to_bar"].values()) <= 1.0 and not tp["frozen_changed"]
+            and tp["flash_heads"] == [4] and tp["checkpoint_equal"] and tp["decodes_equal"]):
+        raise AssertionError(f"the model axis against one process: {tp}")
+    # the training kernels' launches of rank 0's two split steps (the main
+    # path's model-axis entry)
+    rec["model_axis_launches"] = {k: sum(tp["launches"][d][k] for d in DP_INITS)
+                                  for k in tp["launches"]["bf16"]}
+    rec["two_ranks"]["check_s"] = time.perf_counter() - t_check
+    log(f"  phase 9's two-rank checks took {rec['two_ranks']['check_s']:.1f} s")
+    return out
+
+
+def compare_two_ranks(ranks, ones, t_check):
+    """Two ranks' steps (``ranks[r][dtype]``) against this process's
+    one-process steps ``ones`` (bf16; f32 twice; f32 from weights moved by
+    one rounding, twice): each f32 tensor alone and the bf16 step in
+    aggregate (the bars above); the ranks' models against each other."""
+    import torch
+
     one, truth, truth_again = ones[:3]
 
     def grad_norm(g, name):
@@ -2657,7 +2750,8 @@ def check_two_ranks(dev, rec, tasks, tok):
         worst = max(d, key=d.get)
         return {"worst": d[worst], "worst_name": worst, "median": sorted(d.values())[len(d) // 2]}
 
-    f32_out = {"ratio_to_bar": summary(f32_ratio), "next_names": order[-4:-1],
+    f32_out = {"worst_ratio": max(f32_ratio.values()),
+               "ratio_to_bar": summary(f32_ratio), "next_names": order[-4:-1],
                "two_ranks": summary(two), "one_process_again": summary(again),
                "one_rounding": summary(rounded),
                "worst_ratio_detail": {"two_ranks": two[order[-1]],
@@ -2686,12 +2780,50 @@ def check_two_ranks(dev, rec, tasks, tok):
            "bars": {"f32_factor": DP_F32_FACTOR, "f32_floor": DP_F32_FLOOR, "ulp": DP_ULP,
                     "bf16_factor": DP_FACTOR},
            "check_s": time.perf_counter() - t_check}
-    rec["two_ranks"] = out
-    log(f"  two ranks (gloo on cuda:0, 8 rows each of B16, rnnt_impl 'pallas', SpecAugment on; "
-        f"bf16 and f32): {json.dumps(out)}")
-    if not (out["ranks_equal"] and out["rows"] == [8, 8] and max(f32_ratio.values()) <= 1.0
-            and max(ratio.values()) <= 1.0 and not frozen):
-        raise AssertionError(f"two ranks against one process: {out}")
+    return out
+
+
+def check_model_axis(dev, ranks, out, tok, tasks, root):
+    """The 1 x 2 steps' own checks, added to ``compare_two_ranks``'s: the
+    whole tensors each rank holds (parameters not split, statistics) bit-
+    identical across the ranks, the flash forward's heads a rank, the
+    model axis's collectives a step, the training kernels' launches, and
+    the checkpoint rank 0 wrote: loaded by one process it equals the
+    gathered model, and decodes one eval batch as a model of the gathered
+    state does."""
+    import torch
+
+    from indic_cl_asr_torch.audio.features import FrontendConfig
+    from indic_cl_asr_torch.models.hybrid import HybridRNNTCTC
+    from indic_cl_asr_torch.train.eval import Transcriber
+    from indic_cl_asr_torch.utils.checkpoint import load_model
+
+    tp = [r["tp"] for r in ranks]
+    out = dict(out, rows=[t["rows"] for t in tp], mesh=[t["mesh"] for t in tp],
+               whole_equal=all(
+                   torch.equal(v, tp[1][d]["whole"][k])
+                   for d in DP_INITS for k, v in tp[0][d]["whole"].items()),
+               n_whole=len(tp[0]["bf16"]["whole"]), n_split=len(tp[0]["bf16"]["split"]),
+               flash_heads=sorted({h for t in tp for d in DP_INITS for h in t[d]["flash_heads"]}),
+               flash_calls={d: tp[0][d]["flash_calls"] for d in DP_INITS},
+               launches={d: tp[0][d]["launches"] for d in DP_INITS},
+               rank_step_s={d: [t[d]["step_s"] for t in tp] for d in DP_INITS},
+               model_axis_a_step={d: {k: v for k, v in tp[0][d]["counts"].items()
+                                      if k.startswith("model_")} for d in DP_INITS})
+    saved = torch.load(os.path.join(root, DP_INITS["bf16"]), weights_only=False)
+    loaded = load_model(os.path.join(root, "tp_model.pt"), HybridRNNTCTC(saved["cfg"], device=dev))
+    gathered = HybridRNNTCTC(saved["cfg"], device=dev)
+    gathered.load_state_dict(tp[0]["bf16"]["state"])
+    out["checkpoint_equal"] = all(torch.equal(v.float().cpu(), tp[0]["bf16"]["state"][k])
+                                  for k, v in loaded.state_dict().items())
+    entries = tasks[CL_LANGS[0]].val_clean[:16]
+    texts = [Transcriber(model=m, tokenizer=tok, languages=CL_LANGS, frontend=FrontendConfig(),
+                         batch_size=16).transcribe(entries) for m in (loaded, gathered)]
+    out["decodes_equal"] = texts[0] == texts[1]
+    out["decoded_nonempty"] = sum(bool(t) for t in texts[0])
+    del loaded, gathered
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3685,9 +3817,11 @@ def main() -> int:
     # each kernel's launches over the main path's counted runs: the serving
     # slice (phase 4; the beam's from its own path), the training steps
     # (phase 6), the CL sequence (phase 8), the command line (phase 9), the
-    # pretrained path (phase 10), the streaming path (phase 11) and the host side (12)
+    # pretrained path (phase 10), the streaming path (phase 11) and the host
+    # side (12); the model axis's split steps (phase 9, rank 0)
     phases = {"serving": launches, "training": train_launches, "cl": rec["cl_launches"],
-              "cli": rec["cli_launches"], "pretrained": rec["pretrained_launches"],
+              "cli": rec["cli_launches"], "model_axis": rec["model_axis_launches"],
+              "pretrained": rec["pretrained_launches"],
               "streaming": rec["streaming_launches"], "host": rec["host_launches"]}
     rec["main_path_launches"] = {}
     for line in kernels:

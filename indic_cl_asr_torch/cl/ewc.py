@@ -14,7 +14,11 @@ Port of indic_cl_asr_tpu/cl/ewc.py (reference cl_baseline_ewc.py):
   * theta* (checkpoint) is the post-task parameter clone (:282).
 
 Every dict is keyed by the trainable parameters' names; frozen parameters
-carry no Fisher, which equals the JAX package's masked zeros.
+carry no Fisher, which equals the JAX package's masked zeros. Over a model
+split by parallel/sharding.py each entry is the parameter's shard: the
+penalty gradients are elementwise, and the monitor's mean over a split
+tensor sums its shards over the model ranks and divides by the whole
+tensor's size.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from ..parallel.sharding import model_total, split_of, whole_numel
 
 
 @dataclasses.dataclass
@@ -43,7 +49,9 @@ def penalty_grads(cfg: EWCConfig, main_fish: dict, params: dict, checkpoint: dic
     """(grads by name, mean |penalty grad| monitor) — cl_baseline_ewc.py:69-81."""
     grads = {n: 2.0 * cfg.e_lambda * f * (params[n] - checkpoint[n])
              for n, f in main_fish.items()}
-    monitor = sum(g.abs().mean() for g in grads.values()) / max(len(grads), 1)
+    ps = [params[n] for n in grads]
+    monitor = model_total([g.abs().mean() if split_of(p) is None else g.abs().sum() / whole_numel(p)
+                           for g, p in zip(grads.values(), ps)], ps) / max(len(grads), 1)
     return grads, monitor
 
 

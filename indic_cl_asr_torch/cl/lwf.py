@@ -13,7 +13,9 @@ disk every batch), and
 Both joints get a log-softmax before the KL unless ``faithful_raw_logits``
 reproduces the reference's raw-logit KL. The joint KD is chunked over T
 with ``torch.utils.checkpoint`` per chunk; its products are plain
-``torch.matmul`` (outside any Pallas kernel in the JAX package).
+``torch.matmul`` (outside any Pallas kernel in the JAX package). Over a
+model split by parallel/sharding.py the teacher is split as the student
+is.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.rnnt_loss import row_count
+from ..parallel.sharding import is_sharded, shard_model
 from .mas import _valid_frames, joint_logits
 
 
@@ -42,9 +45,11 @@ class LwFConfig:
 def end_task(model: torch.nn.Module, teacher_dtype: str = "float32") -> torch.nn.Module:
     """The just-trained model as the next task's teacher: a second model
     of the same config on the same device, with copies of the parameters
-    and BatchNorm statistics, stored in ``teacher_dtype``; nothing in it
-    takes a gradient."""
+    and BatchNorm statistics, stored in ``teacher_dtype``, split as
+    ``model`` is; nothing in it takes a gradient."""
     teacher = type(model)(model.cfg, device=model.device)
+    if is_sharded(model):
+        shard_model(teacher, model.mesh)
     teacher.load_state_dict(model.state_dict())
     return teacher.to(getattr(torch, teacher_dtype))
 

@@ -11,6 +11,10 @@ Port of indic_cl_asr_tpu/cl/mas.py (reference cl_baseline_mas.py):
         Omega_k += |grad_k(surrogate)|   per batch;  Omega /= n_batches
     and OVERWRITES the stored importance; theta* is the post-task clone.
 
+Over a model split by parallel/sharding.py Omega and theta* hold the
+parameters' shards: the penalty's terms of split parameters are summed
+over the model ranks (identity backward), the whole ones counted once.
+
 The joint energy is computed chunked over T with ``torch.utils.checkpoint``
 per chunk, so the B x T x U x V joint is never held whole. Its products
 are plain ``torch.matmul`` (the JAX package computes them outside any
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..models.common import activate
+from ..parallel.sharding import model_total
 from ..ops.rnnt_loss import row_count
 
 
@@ -44,7 +49,7 @@ class MASState:
 def penalty(cfg: MASConfig, importance: dict, params: dict, checkpoint_: dict):
     """Scalar penalty loss (cl_baseline_mas.py:70-75), scaled by mas_lambda."""
     terms = [torch.sum(o * (params[n] - checkpoint_[n]) ** 2) for n, o in importance.items()]
-    return cfg.mas_lambda * sum(terms)
+    return cfg.mas_lambda * model_total(terms, [params[n] for n in importance])
 
 
 def make_penalty_fn(cfg: MASConfig, state: MASState):

@@ -22,7 +22,10 @@ Under run_sequence's data mesh (``self.mesh``, which it sets) every
 forward here takes the global batch's BatchNorm statistics, every mean
 divides by the global count, and the importance epochs accumulate from
 the globally summed loss and gradients (the square and the absolute
-value do not commute with the sum over the ranks).
+value do not commute with the sum over the ranks). Over a model split
+by parallel/sharding.py the states hold the parameters' shards; they are
+exported whole (``gather_named``, every rank calls it) and imported as
+this rank's shards.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import torch
 
 from ..audio.features import log_mel_spectrogram
 from ..models.conformer import batch_stats_frozen
+from ..parallel.sharding import gather_named, gather_state, local_named
 from ..train.driver import CLMethod
 from ..train.step import (StepConfig, batch_rows, data_parallel, hybrid_forward_loss,
                           hybrid_forward_tensors, reduced)
@@ -97,11 +101,13 @@ class EWCMethod(_ImportanceMethod):
     def export_state(self):
         if self.state.main_fish is None:
             return None
-        return {"main_fish": self.state.main_fish, "checkpoint": self.state.checkpoint}
+        return {"main_fish": gather_named(self.model, self.state.main_fish),
+                "checkpoint": gather_named(self.model, self.state.checkpoint)}
 
     def import_state(self, tree) -> None:
         if tree is not None:
-            self.state = E.EWCState(main_fish=tree["main_fish"], checkpoint=tree["checkpoint"])
+            self.state = E.EWCState(main_fish=local_named(self.model, tree["main_fish"]),
+                                    checkpoint=local_named(self.model, tree["checkpoint"]))
 
 
 class MASMethod(_ImportanceMethod):
@@ -133,9 +139,9 @@ class MASMethod(_ImportanceMethod):
             f_proj, g_proj = model.joint_project(f, g)
             _, ctc_logits = model.ctc_logprobs(f, lang, return_logits=True)
             row_mask, n_rows = batch_rows(batch, f.shape[0], f.device)
+            head_kernel, head_bias = model.joint.heads()
             surrogate = M.mas_surrogate(
-                self.cfg, f_proj, g_proj, model.joint.head_kernel[lang],
-                model.joint.head_bias[lang], ctc_logits,
+                self.cfg, f_proj, g_proj, head_kernel[lang], head_bias[lang], ctc_logits,
                 activation=model.cfg.joint_activation, chunk_size=step_cfg.rnnt_chunk_size,
                 row_mask=row_mask, n_rows=n_rows, uniform_head=step_cfg.uniform_lang_head)
         grads, _ = _global_grads(self.mesh, surrogate, self.names, self.params)
@@ -147,11 +153,13 @@ class MASMethod(_ImportanceMethod):
     def export_state(self):
         if self.state.importance is None:
             return None
-        return {"importance": self.state.importance, "checkpoint": self.state.checkpoint}
+        return {"importance": gather_named(self.model, self.state.importance),
+                "checkpoint": gather_named(self.model, self.state.checkpoint)}
 
     def import_state(self, tree) -> None:
         if tree is not None:
-            self.state = M.MASState(importance=tree["importance"], checkpoint=tree["checkpoint"])
+            self.state = M.MASState(importance=local_named(self.model, tree["importance"]),
+                                    checkpoint=local_named(self.model, tree["checkpoint"]))
 
 
 class LwFMethod(CLMethod):
@@ -206,9 +214,9 @@ class LwFMethod(CLMethod):
         self.teacher = L.end_task(self.model, self.cfg.teacher_dtype)
 
     def export_state(self):
-        return None if self.teacher is None else {"teacher": self.teacher.state_dict()}
+        return None if self.teacher is None else {"teacher": gather_state(self.teacher)["model"]}
 
     def import_state(self, tree) -> None:
         if tree is not None:
             self.teacher = L.end_task(self.model, self.cfg.teacher_dtype)
-            self.teacher.load_state_dict(tree["teacher"])
+            self.teacher.load_state_dict(local_named(self.teacher, tree["teacher"]))

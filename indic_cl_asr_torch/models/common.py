@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sharding import reduce_from_model
+
 
 def cast(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Parameter ``p`` in the compute dtype. Where no gradient flows to it
@@ -53,6 +55,15 @@ class Dense(nn.Linear):
         dt = self.dtype
         b = None if self.bias is None else cast(self.bias, dt)
         return F.linear(x.to(dt), cast(self.weight, dt), b)
+
+
+def row_parallel(dense: Dense, x: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel ``dense`` over ``mesh``'s model axis: this rank's
+    input features times its slice of the weight's input dim, the partial
+    products summed over the model ranks, then the (whole) bias once."""
+    dt = dense.dtype
+    y = reduce_from_model(F.linear(x.to(dt), cast(dense.weight, dt)), mesh)
+    return y if dense.bias is None else y + cast(dense.bias, dt)
 
 
 class _CastConv:
@@ -135,39 +146,67 @@ class Rngs:
     the SpecAugment bands and the attention kernel's per-layer dropout
     seeds. ``device`` lives on the model's device and draws the large
     masks (dither, dropout). ``rank`` is the data rank folded into the
-    device generator's seed and every kernel seed (``fold_rank``). JAX
-    keys and torch generators give different numbers, so these draws
-    match the JAX package in distribution, not in value; under two or more
-    data ranks the device draws match the one-process run in
+    device generator's seed and the joint kernel's (``fold_rank``): the
+    whole model's draws are the same on every model rank of a data rank.
+    Under a model axis of M > 1 (``model_rank``, ``n_model``) a split
+    region draws from ``region``, a second device generator, and its
+    attention kernel seeds (``seed``) fold in the global rank
+    ``rank·M + model_rank``: each rank's heads and FFN slice get masks of
+    their own. At M = 1 ``region`` is ``device`` and ``seed`` folds the
+    data rank. JAX keys and torch generators give different numbers, so
+    these draws match the JAX package in distribution, not in value; under
+    more than one rank the device draws match the one-process run in
     distribution, not in value."""
 
     host: torch.Generator
     device: torch.Generator
     rank: int = 0
+    model_rank: int = 0
+    n_model: int = 1
+    split: torch.Generator | None = None
 
     @classmethod
-    def from_host(cls, host: torch.Generator, device, rank: int = 0) -> "Rngs":
+    def from_host(cls, host: torch.Generator, device, rank: int = 0, model_rank: int = 0,
+                  n_model: int = 1) -> "Rngs":
         """A device generator seeded from one draw of ``host``, folded
-        with the data rank ``rank``."""
+        with the data rank ``rank``; under a model axis a second one for
+        the split regions, folded with the global rank."""
+        draw = int(torch.randint(0, 2**62, (1,), generator=host))
         dev = torch.Generator(device=torch.device(device))
-        dev.manual_seed(fold_rank(int(torch.randint(0, 2**62, (1,), generator=host)), rank, 62))
-        return cls(host=host, device=dev, rank=rank)
+        dev.manual_seed(fold_rank(draw, rank, 62))
+        split = None
+        if n_model > 1:
+            split = torch.Generator(device=torch.device(device))
+            split.manual_seed(fold_rank(draw ^ _SPLIT_SALT, rank * n_model + model_rank, 62))
+        return cls(host=host, device=dev, rank=rank, model_rank=model_rank, n_model=n_model,
+                   split=split)
+
+    @property
+    def region(self) -> torch.Generator:
+        """The device generator of the model-parallel regions."""
+        return self.device if self.split is None else self.split
 
     def fork(self) -> "Rngs":
-        """Another step's Rngs from the same host generator and rank."""
-        return Rngs.from_host(self.host, self.device.device, self.rank)
+        """Another step's Rngs from the same host generator and ranks."""
+        return Rngs.from_host(self.host, self.device.device, self.rank, self.model_rank,
+                              self.n_model)
 
     def seed(self) -> int:
         """A 31-bit seed from ``host`` (one per attention layer and step),
-        folded with the data rank."""
+        folded with the global rank (the data rank at M = 1)."""
         return fold_rank(int(torch.randint(0, 2**31 - 1, (1,), generator=self.host)),
-                         self.rank, 31)
+                         self.rank * self.n_model + self.model_rank, 31)
+
+
+# keeps a split region's device stream apart from every rank's whole one
+_SPLIT_SALT = 0x5DEECE66D
 
 
 def fold_rank(seed: int, rank: int, bits: int) -> int:
-    """``seed`` for data rank ``rank``: unchanged at rank 0, distinct for
-    every rank. The host generator is the same on every rank (so are the
-    SpecAugment bands, drawn for the global batch), but the kernels hash
-    (seed, local row, ...) and the device generators draw local masks:
-    without the fold, row i of every rank would get the same dropout."""
+    """``seed`` for rank ``rank`` (the data rank; in a model-split region
+    the global rank): unchanged at rank 0, distinct for every rank. The
+    host generator is the same on every rank (so are the SpecAugment
+    bands, drawn for the global batch), but the kernels hash (seed, local
+    row or head, ...) and the device generators draw local masks: without
+    the fold, row i of every rank would get the same dropout."""
     return (seed ^ (rank * 0x9E3779B97F4A7C15)) & ((1 << bits) - 1)

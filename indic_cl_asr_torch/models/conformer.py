@@ -56,6 +56,18 @@ package:
     train mode: their dropout applies and their BatchNorm statistics are
     updated.
 
+Split over a model axis (parallel/sharding.py:shard_model) each layer
+runs Megatron's column/row pairs on its slices: attention over H/M local
+heads (the flash kernels unchanged, the position biases and any
+global-token projections sliced to those heads, linear_out row-parallel),
+the FFN (linear1 column-, linear2 row-parallel) and the conv module
+(pointwise_conv1's paired value and gate columns, so the GLU is local; the
+depthwise conv and the norm on the local channels, BatchNorm's sums over
+the data ranks only and its updated statistics gathered whole;
+pointwise_conv2 row-parallel). Draws inside a split region (the attention
+kernel's seed, the eager attention's and the FFN's dropout) fold the model
+rank in (``Rngs.region``); the residual ones do not.
+
 Layer parameters are one module per layer; both JAX layouts (scanned
 ``stack/layers`` [L, ...] and unrolled ``layers_i``) load into it through
 models/convert.py. ``dropout_emb`` and ``pos_emb_max_len`` are accepted and read by
@@ -73,7 +85,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.flash_mhsa import MAX_HEAD_DIM, flash_relpos_mhsa
-from .common import Conv1d, Conv2d, Dense, LayerNorm, Rngs, cast, dropout
+from ..parallel.sharding import all_reduce_sum, copy_to_model, gather_from_model, region_mesh
+from .common import Conv1d, Conv2d, Dense, LayerNorm, Rngs, cast, dropout, row_parallel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,11 +235,20 @@ class RelPosSelfAttention(nn.Module):
     def forward(self, x, pos_emb, lens, att_mask, rngs: Rngs | None = None):
         cfg = self.cfg
         H, D = cfg.n_heads, cfg.d_model // cfg.n_heads
+        mesh = region_mesh(self.linear_q.weight)
+        heads = slice(0, H)
+        if mesh is not None:  # this rank's H/M heads
+            x = copy_to_model(x, mesh)
+            H //= mesh.n_model
+            heads = slice(mesh.model_rank * H, (mesh.model_rank + 1) * H)
         B, T, _ = x.shape
         q = self.linear_q(x)
         k = self.linear_k(x)
         v = self.linear_v(x)
-        p = self.linear_pos(pos_emb)  # [2T-1, d]
+        p = self.linear_pos(pos_emb)  # [2T-1, H*D]
+        bias_u, bias_v = self.pos_bias_u, self.pos_bias_v
+        if mesh is not None:
+            bias_u, bias_v = bias_u[heads], bias_v[heads]
         drop = cfg.dropout_att if self.training else 0.0
         left, right = cfg.att_context_size
         if self.route == "flash":
@@ -236,10 +258,10 @@ class RelPosSelfAttention(nn.Module):
                     raise ValueError("attention dropout in train mode needs rngs")
                 seed = rngs.seed()
             out = flash_relpos_mhsa(
-                q, k, v, p, self.pos_bias_u, self.pos_bias_v, lens,
+                q, k, v, p, bias_u, bias_v, lens,
                 n_heads=H, left=left, right=right, dropout_rate=drop, seed=seed,
             )
-            return self.linear_out(out)
+            return self._out(out, mesh)
 
         dt = q.dtype
         q = q.view(B, T, H, D)
@@ -247,15 +269,17 @@ class RelPosSelfAttention(nn.Module):
         v = v.view(B, T, H, D)
         p = p.view(-1, H, D)
         # scores ride in the compute dtype, the softmax in f32
-        ac = torch.einsum("bthd,bshd->bhts", q + cast(self.pos_bias_u, dt), k)
-        bd = torch.einsum("bthd,phd->bhtp", q + cast(self.pos_bias_v, dt), p)
+        ac = torch.einsum("bthd,bshd->bhts", q + cast(bias_u, dt), k)
+        bd = torch.einsum("bthd,phd->bhtp", q + cast(bias_v, dt), p)
         scores = (ac + _rel_shift(bd)) / math.sqrt(D)
         mask = att_mask[:, None]
         if cfg.global_tokens > 0:
             is_g = global_positions(cfg, T).to(x.device)
             gq, gk, gv = q, k, v
             if cfg.global_attn_separate:
-                gq, gk, gv = (lin(x).view(B, T, H, D)
+                rows = slice(heads.start * D, heads.stop * D)
+                gq, gk, gv = (F.linear(x.to(dt), cast(lin.weight, dt)[rows],
+                                       cast(lin.bias, dt)[rows]).view(B, T, H, D)
                               for lin in (self.global_q, self.global_k, self.global_v))
             # a link with a global end takes the content-only global score
             # and is open between any two valid positions
@@ -268,12 +292,15 @@ class RelPosSelfAttention(nn.Module):
         scores = scores.masked_fill(~mask, -1e9)
         attn = torch.softmax(scores.float(), dim=-1)
         attn = torch.where(mask, attn, 0.0)
-        attn = dropout(attn, drop, rngs.device if rngs else None, self.training).to(dt)
+        attn = dropout(attn, drop, rngs.region if rngs else None, self.training).to(dt)
         out = torch.einsum("bhts,bshd->bthd", attn, v)
         if cfg.global_tokens > 0:  # the global rows draw on the global values
             out = torch.where(is_g[None, :, None, None],
                               torch.einsum("bhts,bshd->bthd", attn, gv), out)
-        return self.linear_out(out.reshape(B, T, cfg.d_model))
+        return self._out(out.reshape(B, T, H * D), mesh)
+
+    def _out(self, out, mesh):
+        return self.linear_out(out) if mesh is None else row_parallel(self.linear_out, out, mesh)
 
 
 class BatchNorm(nn.Module):
@@ -287,7 +314,10 @@ class BatchNorm(nn.Module):
     (set by train/step.py:data_parallel under a data mesh) maps this
     rank's Σx and Σx² to the global batch's, differentiably, and gives
     the number of ranks: the statistics are then the global batch's, the
-    same on every rank."""
+    same on every rank. Given the ``mesh`` of a model-split conv module,
+    x holds this model rank's channels: the norm reads its slice of the
+    scale, bias and statistics, and gathers the updated statistics whole
+    over the model ranks."""
 
     def __init__(self, C: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
@@ -300,8 +330,9 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(C))
         self.register_buffer("running_var", torch.ones(C))
 
-    def forward(self, x):  # [B, C, T]
+    def forward(self, x, mesh=None):  # [B, C, T]
         xf = x.float()
+        ch = _channels(x, mesh)
         if self.training:
             sums = torch.stack([xf.sum(dim=(0, 2)), (xf * xf).sum(dim=(0, 2))])
             n = xf.shape[0] * xf.shape[2]
@@ -313,13 +344,26 @@ class BatchNorm(nn.Module):
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum
-                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
+                    new = torch.stack([m * self.running_mean[ch] + (1 - m) * mean,
+                                       m * self.running_var[ch] + (1 - m) * var])
+                    if mesh is not None:
+                        new = gather_from_model(new, 1, mesh)
+                    self.running_mean.copy_(new[0])
+                    self.running_var.copy_(new[1])
         else:
-            mean, var = self.running_mean.float(), self.running_var.float()
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+            mean, var = self.running_mean[ch].float(), self.running_var[ch].float()
+        mul = torch.rsqrt(var + self.eps) * self.weight[ch].float()
         y = (xf - mean[:, None]) * mul[:, None]
-        return (y + self.bias.float()[:, None]).to(x.dtype)
+        return (y + self.bias[ch].float()[:, None]).to(x.dtype)
+
+
+def _channels(x, mesh) -> slice:
+    """The channels of [B, C, T] ``x`` among the whole norm's: this model
+    rank's slice under ``mesh``, all of them without one."""
+    if mesh is None:
+        return slice(None)
+    C = x.shape[1]
+    return slice(mesh.model_rank * C, (mesh.model_rank + 1) * C)
 
 
 class GroupNorm(nn.Module):
@@ -328,7 +372,9 @@ class GroupNorm(nn.Module):
     channels of a group, so a row's result depends on its padding) of
     [B, C, T], in f32: statistics E[x] and E[x²] - E[x]² clipped at 0,
     eps 1e-6, ``(x - mean)·(rsqrt(var + eps)·scale) + bias``; no running
-    statistics."""
+    statistics. Given a model-split conv module's ``mesh`` x holds this
+    model rank's channels: a layer norm sums its statistics over the model
+    ranks, a group norm keeps groups/M whole groups."""
 
     def __init__(self, C: int, groups: int | None, eps: float = 1e-6):
         super().__init__()
@@ -339,19 +385,25 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(C))
         self.bias = nn.Parameter(torch.zeros(C))
 
-    def forward(self, x):  # [B, C, T]
+    def forward(self, x, mesh=None):  # [B, C, T]
         xf = x.float()
-        if self.groups is None:
+        ch = _channels(x, mesh)
+        if self.groups is None and mesh is not None:
+            sums = torch.stack([xf.sum(dim=1, keepdim=True), (xf * xf).sum(dim=1, keepdim=True)])
+            sums = all_reduce_sum(sums, mesh, "model") / self.weight.shape[0]
+            mean, sq = sums[0], sums[1]
+        elif self.groups is None:
             mean = xf.mean(dim=1, keepdim=True)
             sq = (xf * xf).mean(dim=1, keepdim=True)
         else:
             B, C, T = xf.shape
-            g = xf.reshape(B, self.groups, C // self.groups * T)
-            mean = g.mean(dim=2).repeat_interleave(C // self.groups, dim=1)[:, :, None]
-            sq = (g * g).mean(dim=2).repeat_interleave(C // self.groups, dim=1)[:, :, None]
+            groups = self.groups // (1 if mesh is None else mesh.n_model)
+            g = xf.reshape(B, groups, C // groups * T)
+            mean = g.mean(dim=2).repeat_interleave(C // groups, dim=1)[:, :, None]
+            sq = (g * g).mean(dim=2).repeat_interleave(C // groups, dim=1)[:, :, None]
         var = torch.clamp(sq - mean * mean, min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()[:, None]
-        return ((xf - mean) * mul + self.bias.float()[:, None]).to(x.dtype)
+        mul = torch.rsqrt(var + self.eps) * self.weight[ch].float()[:, None]
+        return ((xf - mean) * mul + self.bias[ch].float()[:, None]).to(x.dtype)
 
 
 def conv_norm(cfg: ConformerConfig) -> nn.Module:
@@ -399,15 +451,35 @@ class ConformerConvModule(nn.Module):
         self.pointwise_conv2 = Dense(d, d, dtype=cfg.dtype)
 
     def forward(self, x, pad_mask):
-        a, b = self.pointwise_conv1(x).chunk(2, dim=-1)
+        mesh = region_mesh(self.pointwise_conv1.weight)
+        if mesh is None:
+            a, b = self.pointwise_conv1(x).chunk(2, dim=-1)
+        else:  # this rank's value and gate columns, and their biases
+            x = copy_to_model(x, mesh)
+            pw = self.pointwise_conv1
+            dt = pw.dtype
+            bias = torch.cat([half[self._local(mesh)] for half in cast(pw.bias, dt).chunk(2)])
+            a, b = F.linear(x.to(dt), cast(pw.weight, dt), bias).chunk(2, dim=-1)
         h = a * torch.sigmoid(b)
         h = torch.where(pad_mask[:, :, None], h, 0.0)
         h = h.transpose(1, 2)
         if self.causal_pad:
             h = F.pad(h, (self.causal_pad, 0))
-        h = self.depthwise_conv(h)
-        h = F.silu(self.batch_norm(h)).transpose(1, 2)
-        return self.pointwise_conv2(h)
+        if mesh is None:
+            h = self.depthwise_conv(h)
+            h = F.silu(self.batch_norm(h)).transpose(1, 2)
+            return self.pointwise_conv2(h)
+        dw = self.depthwise_conv
+        ch = self._local(mesh)
+        h = F.conv1d(h.to(dw.dtype), cast(dw.weight, dw.dtype)[ch], cast(dw.bias, dw.dtype)[ch],
+                     padding=dw.padding, groups=h.shape[1])
+        h = F.silu(self.batch_norm(h, mesh)).transpose(1, 2)
+        return row_parallel(self.pointwise_conv2, h, mesh)
+
+    def _local(self, mesh) -> slice:
+        """This model rank's channels of the d_model."""
+        C = self.depthwise_conv.in_channels // mesh.n_model
+        return slice(mesh.model_rank * C, (mesh.model_rank + 1) * C)
 
 
 class FeedForward(nn.Module):
@@ -418,9 +490,12 @@ class FeedForward(nn.Module):
         self.linear2 = Dense(cfg.d_ff, cfg.d_model, dtype=cfg.dtype)
 
     def forward(self, x, rngs: Rngs | None = None):
+        mesh = region_mesh(self.linear1.weight)
+        if mesh is not None:
+            x = copy_to_model(x, mesh)
         h = F.silu(self.linear1(x))
-        h = dropout(h, self.cfg.dropout, rngs.device if rngs else None, self.training)
-        return self.linear2(h)
+        h = dropout(h, self.cfg.dropout, rngs.region if rngs else None, self.training)
+        return self.linear2(h) if mesh is None else row_parallel(self.linear2, h, mesh)
 
 
 class ConformerLayer(nn.Module):

@@ -62,6 +62,31 @@ def port_leaf(path: str, arr) -> tuple[str, np.ndarray]:
     return f"{mod}.{_LEAVES.get(leaf, leaf)}", arr
 
 
+_INDEXED = {"layers": "layers_", "convs": "conv_", "lstm": "lstm_"}
+_JAX_LEAVES = {"running_mean": "mean", "running_var": "var"}
+
+
+def jax_path(name: str, ndim: int) -> tuple[str, tuple | None]:
+    """The inverse of ``port_leaf`` for names: a port state-dict name of a
+    tensor of ``ndim`` dims -> (its JAX path below ``params`` or
+    ``batch_stats``, unrolled layout; the ``_KERNEL_AXES`` the port's
+    layout took from the JAX one, None where it kept it). JAX dim j is
+    port dim ``axes.index(j)``."""
+    *mods, leaf = name.split(".")
+    parts, i = [], 0
+    while i < len(mods):
+        if mods[i] in _INDEXED and i + 1 < len(mods) and mods[i + 1].isdigit():
+            parts.append(_INDEXED[mods[i]] + mods[i + 1])
+            i += 2
+        else:
+            parts.append(mods[i])
+            i += 1
+    axes = None
+    if leaf == "weight":
+        leaf, axes = ("kernel", _KERNEL_AXES[ndim]) if ndim >= 2 else ("scale", None)
+    return "/".join(parts + [_JAX_LEAVES.get(leaf, leaf)]), axes
+
+
 def named_state_dict(named: dict) -> dict[str, np.ndarray]:
     """{JAX path: array} -> {port name: array}. A path may carry its
     collection (``params/...``, ``batch_stats/...``) or be relative to

@@ -3,7 +3,9 @@
 Port of indic_cl_asr_tpu/models/ctc.py: one aggregate head
 [d, V_total + 1] (shared blank last); each sample's logits are its
 language's contiguous V_local columns plus the blank column, cast to the
-compute dtype, an f32-accumulated product and an f32 log-softmax.
+compute dtype, an f32-accumulated product and an f32 log-softmax. Split
+over a model axis (parallel/sharding.py) the head is stored split over
+its classes where they divide and gathered whole at use.
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import dataclasses
 
 import torch
 from torch import nn
+
+from ..parallel.sharding import whole
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,14 +49,15 @@ class CTCDecoder(nn.Module):
         V, L = cfg.vocab_per_lang, cfg.n_langs
         lang = lang_ids.long()
         B = lang.shape[0]
-        w_langs = self.kernel[:, : cfg.vocab_size_total].reshape(cfg.feat_in, L, V)
+        kernel, bias = whole(self.kernel), whole(self.bias)
+        w_langs = kernel[:, : cfg.vocab_size_total].reshape(cfg.feat_in, L, V)
         w = torch.cat(
             [w_langs[:, lang].permute(1, 0, 2),
-             self.kernel[:, -1:][None].expand(B, -1, -1)], dim=-1,
+             kernel[:, -1:][None].expand(B, -1, -1)], dim=-1,
         )  # [B, d, V+1]
         b = torch.cat(
-            [self.bias[: cfg.vocab_size_total].reshape(L, V)[lang],
-             self.bias[-1:][None].expand(B, -1)], dim=-1,
+            [bias[: cfg.vocab_size_total].reshape(L, V)[lang],
+             bias[-1:][None].expand(B, -1)], dim=-1,
         )
         dt = cfg.dtype
         x = encoded.to(dt).float()

@@ -22,6 +22,13 @@ a training step off the host; in f32 it equals the step loop up to the
 order of f32 sums, in bf16 it keeps the gates and the cell in f32 inside
 the op (more precise than the JAX package's bf16 gates).
 Parameters are f32, cast to the compute dtype at use.
+
+Split over a model axis (parallel/sharding.py:shard_model) the storage
+follows the JAX package's rules (the embedding over the vocabulary, the
+LSTM over its 4H gates, the heads over their classes where they divide)
+and the compute runs whole from weights gathered at use
+(``sharding.whole``): the LSTM needs all four gates of a unit. The joint's
+enc/pred projections are column-parallel and their outputs gathered.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sharding import copy_to_model, gather_from_model, region_mesh, whole
 from ..utils.profiling import counted_call
 from .common import JOINT_ACTIVATIONS, Dense, activate, cast, dropout
 
@@ -96,6 +104,10 @@ class LSTM(nn.Module):
             return self.sequence(x)
         return self.steps(x, h0, c0)
 
+    def weights(self):
+        """(w_ih, w_hh, bias), whole (gathered where split)."""
+        return whole(self.w_ih), whole(self.w_hh), whole(self.bias)
+
     def sequence(self, x):
         """The whole sequence from the zero state in one ``torch.lstm``
         (counted by ``lstm_work`` in a FLOP audit, which does not see
@@ -103,7 +115,6 @@ class LSTM(nn.Module):
         B, U, D = x.shape
         dt = self.dtype
         zeros = torch.zeros((1, B, self.hidden), dtype=dt, device=x.device)
-        zero_b = torch.zeros_like(self.bias, dtype=dt)
         # with no dropout inside the LSTM, ``train`` only tells cuDNN to
         # keep what its backward needs: an eval-mode net that takes
         # gradients (MAS's surrogate) needs it too
@@ -119,9 +130,11 @@ class LSTM(nn.Module):
 
         size = torch.finfo(dt).bits // 8
         nbytes, flops = lstm_work(B, U, D, self.hidden, size)
+        w_ih, w_hh, bias = self.weights()
+        zero_b = torch.zeros_like(bias, dtype=dt)
         out, h, c = counted_call(
-            run, (x.to(dt), self.w_ih.t().to(dt).contiguous(),
-                  self.w_hh.t().to(dt).contiguous(), self.bias.to(dt)),
+            run, (x.to(dt), w_ih.t().to(dt).contiguous(),
+                  w_hh.t().to(dt).contiguous(), bias.to(dt)),
             ("lstm", lambda: (nbytes, flops)), ("lstm_backward", lambda: (2 * nbytes, 2 * flops)))
         return out, (h[0], c[0].to(torch.float32))
 
@@ -135,8 +148,9 @@ class LSTM(nn.Module):
         c = c0 if c0 is not None else torch.zeros(
             (B, self.hidden), dtype=torch.float32, device=x.device
         )
-        w_hh = cast(self.w_hh, dt)
-        xw = x.to(dt) @ cast(self.w_ih, dt) + cast(self.bias, dt)  # [B, U, 4H]
+        w_ih, w_hh, bias = self.weights()
+        w_hh = cast(w_hh, dt)
+        xw = x.to(dt) @ cast(w_ih, dt) + cast(bias, dt)  # [B, U, 4H]
         outs = []
         for u in range(U):
             gates = xw[:, u] + h @ w_hh
@@ -171,7 +185,7 @@ class PredictionNetwork(nn.Module):
             sos = torch.full((tokens.shape[0], 1), cfg.blank_idx,
                              dtype=tokens.dtype, device=tokens.device)
             tokens = torch.cat([sos, tokens], dim=1)
-        emb = self.embedding[tokens.clamp(0, cfg.vocab_size_total)]
+        emb = whole(self.embedding)[tokens.clamp(0, cfg.vocab_size_total)]
         emb = torch.where((tokens == cfg.blank_idx)[..., None], 0.0, emb).to(cfg.dtype)
         new_states = []
         h = emb
@@ -199,19 +213,41 @@ class RNNTJoint(nn.Module):
         )
 
     def project_enc(self, f):
-        return self.enc(f)
+        mesh = region_mesh(self.enc.weight)
+        if mesh is None:
+            return self.enc(f)
+        dt = self.cfg.dtype
+        cols = self._local(mesh)
+        y = F.linear(copy_to_model(f, mesh).to(dt), cast(self.enc.weight, dt),
+                     cast(self.enc.bias, dt)[cols])
+        return gather_from_model(y, -1, mesh)
 
     def project_pred(self, g):
         # the product rounded to the compute dtype, then the bias: Flax
         # Dense's order, and the fused decode kernel's
         dt = self.cfg.dtype
-        return F.linear(g.to(dt), cast(self.pred.weight, dt)) + cast(self.pred.bias, dt)
+        mesh = region_mesh(self.pred.weight)
+        if mesh is None:
+            return F.linear(g.to(dt), cast(self.pred.weight, dt)) + cast(self.pred.bias, dt)
+        y = F.linear(copy_to_model(g, mesh).to(dt), cast(self.pred.weight, dt))
+        return gather_from_model(y + cast(self.pred.bias, dt)[self._local(mesh)], -1, mesh)
+
+    def _local(self, mesh) -> slice:
+        """This model rank's columns of the joint hidden."""
+        H = self.cfg.joint_hidden // mesh.n_model
+        return slice(mesh.model_rank * H, (mesh.model_rank + 1) * H)
+
+    def heads(self):
+        """(head_kernel [L, H, V+1], head_bias [L, V+1]), whole (gathered
+        where split)."""
+        return whole(self.head_kernel), whole(self.head_bias)
 
     def step_logits(self, f_t, g_t, lang_ids):
         """Projected f_t [B, H] + projected g_t [B, H] -> [B, V_local+1] f32
         (the head cast to the compute dtype, the f32 bias added)."""
         inp = activate(f_t + g_t, self.cfg.activation)
         lang = lang_ids.long()
-        w = self.head_kernel[lang].to(self.cfg.dtype)  # [B, H, V+1]
-        b = self.head_bias[lang]
+        head_kernel, head_bias = self.heads()
+        w = head_kernel[lang].to(self.cfg.dtype)  # [B, H, V+1]
+        b = head_bias[lang]
         return torch.einsum("bh,bhv->bv", inp.float(), w.float()) + b.float()

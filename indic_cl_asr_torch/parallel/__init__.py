@@ -1,2 +1,2 @@
-"""The data-parallel runtime on torch.distributed (distributed.py: the
-process group; sharding.py: the data axis and the batch's rows)."""
+"""The DP x TP runtime on torch.distributed (distributed.py: the process
+group; sharding.py: the mesh, the batch's rows and the model's shards)."""

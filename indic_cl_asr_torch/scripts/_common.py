@@ -20,10 +20,11 @@ Several processes, one device each: ``INDIC_ASR_MULTIHOST=1`` joins the
 process group, from ``INDIC_ASR_COORDINATOR`` (host:port),
 ``INDIC_ASR_NUM_PROCESSES`` and ``INDIC_ASR_PROCESS_ID``, or else from
 torchrun's variables (NCCL on ``--device cuda``, gloo on ``cpu``);
-``--mesh.data N`` (0: every process) trains data parallel over N of them.
-The main process writes the synthetic data, ``config.json`` and the
-tokenizer, the others wait at a barrier. ``--mesh.model`` above 1 raises
-``NotImplementedError``: the model axis is not ported (ROADMAP §1).
+``--mesh.data N --mesh.model M`` (data 0: every process / M) trains on
+the N x M mesh of them: data parallel over N, the model split over M
+(parallel/sharding.py:shard_model, tensor-parallel encoder, heads and
+prediction net gathered at use). The main process writes the synthetic
+data, ``config.json`` and the tokenizer, the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from ..device import resolve_device
 from ..models.conformer import ConformerConfig
 from ..models.hybrid import HybridModelConfig, HybridRNNTCTC, init_weights_
 from ..parallel.distributed import barrier, is_main_process, process_count, setup_distributed
-from ..parallel.sharding import make_mesh
+from ..parallel.sharding import make_mesh, shard_model
 from ..train.driver import LANGUAGES, DriverConfig, TaskData, run_sequence
 from ..train.logger import Logger
 from ..train.state import make_optimizer
@@ -193,13 +194,10 @@ def build_model_cfg(cfg, tokenizer, languages) -> HybridModelConfig:
 
 def build_mesh(cfg):
     """``--mesh.data N --mesh.model M`` (data 0: every process / M); None
-    for 1 x 1, the one-process path."""
+    for 1 x 1, the one-process path. A mesh that does not cover the
+    processes raises ``ValueError`` (parallel/sharding.py:make_mesh)."""
     mc = cfg.get("mesh", {})
     n_data, n_model = int(mc.get("data", 1)), int(mc.get("model", 1))
-    if n_model > 1:
-        raise NotImplementedError(
-            f"mesh model={n_model}: tensor-parallel training is not ported (ROADMAP §1, "
-            "the model axis)")
     if n_data == 1 and n_model == 1:
         return None
     mesh = make_mesh(n_data=None if n_data == 0 else n_data, n_model=n_model)
@@ -222,6 +220,8 @@ def build_all(cfg, ns) -> dict:
     init_weights_(model, torch.Generator().manual_seed(cfg.seed))
     if cfg.get("init_checkpoint"):
         load_model(cfg.init_checkpoint, model)
+    if mesh is not None:
+        shard_model(model, mesh)  # the model axis; AdamW then holds the shards
     optimizer = make_optimizer(model, lr=cfg.lr,
                                freeze_encoder_till=cfg.model.freeze_encoder_till,
                                device=device)

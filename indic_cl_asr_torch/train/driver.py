@@ -28,8 +28,8 @@ import torch
 from ..data.manifest import ManifestEntry
 from ..data.pipeline import BatchPipeline, BucketSpec
 from ..device import resolve_device
-from ..parallel.distributed import barrier, is_main_process
-from ..parallel.sharding import place_batch
+from ..parallel.distributed import barrier
+from ..parallel.sharding import gather_state, is_sharded, place_batch
 from ..utils.checkpoint import SequenceCheckpointer, save_partial
 from . import metrics as M
 from .eval import Transcriber, run_eval
@@ -138,15 +138,33 @@ def run_sequence(
     its rows of each (``place_batch``) and steps data parallel; eval and
     the importance epochs' counts are replicated. The main process writes
     the partial weights and the task checkpoints, then a barrier; a
-    resume loads on every process."""
+    resume loads on every process.
+
+    A model split over ``mesh``'s model axis (parallel/sharding.py:
+    shard_model) trains split; every rank evaluates a whole copy gathered
+    from the shards before each eval (``Transcriber`` and the fused
+    decode take whole weights), where the JAX package evaluates the split
+    program: the values are the same."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, run_sequence asked for {dev}")
     languages = list(languages or LANGUAGES[: cfg.n_langs])
+    split = is_sharded(model)
+    if split and transcriber is not None and transcriber.model is model:
+        raise ValueError("a split model decodes through a whole copy: pass a transcriber "
+                         "over another model of the same config, or none")
     transcriber = transcriber or Transcriber(
-        model=model, tokenizer=tokenizer, languages=languages, frontend=step_cfg.frontend,
+        model=type(model)(model.cfg, device=model.device) if split else model,
+        tokenizer=tokenizer, languages=languages, frontend=step_cfg.frontend,
         batch_size=cfg.batch_size, bucket_spec=cfg.bucket_spec,
     )
+
+    def eval_all(lang_idx, epoch, record):
+        if split:  # every rank: the whole model from the shards
+            transcriber.model.load_state_dict(gather_state(model)["model"])
+        _eval_all(logger, transcriber, task_data, languages, lang_idx, epoch,
+                  val_performance, test_performance, record=record)
+
     val_performance: dict[str, list] = {l: [] for l in languages}
     test_performance: dict[str, list] = {l: [] for l in languages}
     root = torch.Generator().manual_seed(cfg.seed)
@@ -202,12 +220,10 @@ def run_sequence(
             if (cfg.evaluate_every_n_epochs
                     and (epoch + 1) % cfg.evaluate_every_n_epochs == 0
                     and epoch != cfg.epochs - 1):
-                _eval_all(logger, transcriber, task_data, languages, lang_idx, epoch,
-                          val_performance, test_performance, record=False)
+                eval_all(lang_idx, epoch, record=False)
 
         # eval BEFORE the importance epoch (reference timing)
-        _eval_all(logger, transcriber, task_data, languages, lang_idx, cfg.epochs - 1,
-                  val_performance, test_performance, record=True)
+        eval_all(lang_idx, cfg.epochs - 1, record=True)
 
         if method.wants_importance_epoch():
             acc = method.begin_importance()
@@ -228,9 +244,8 @@ def run_sequence(
         logger.log_bwt_curves(curves)
 
         if cfg.save_weights:
-            # the parameters are the same on every process: one writer
-            if is_main_process():
-                save_partial(f"{logger.dir}/model_{lang}.npz", model, optimizer.names)
+            # every process gathers a split model, the main process writes
+            save_partial(f"{logger.dir}/model_{lang}.npz", model, optimizer.names)
             barrier("partial save")
         if checkpointer is not None:
             checkpointer.save_task(lang_idx, lang, model, optimizer, val_performance,

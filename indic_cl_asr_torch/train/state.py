@@ -17,6 +17,10 @@ The arithmetic is optax's, in its order, in f32:
 so an update agrees with the JAX package's to f32 rounding. The global-norm
 clip scales by ``max_norm / ‖g‖`` where ‖g‖ >= max_norm, with no ``+1e-6``
 in the divisor (unlike ``torch.nn.utils.clip_grad_norm_``).
+
+Over a model split by parallel/sharding.py:shard_model the optimizer holds
+the shards and its moments follow them; the global norm sums the split
+gradients' squares over the model ranks and counts the whole ones once.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..parallel.sharding import model_total
 
 B1, B2, EPS = 0.9, 0.999, 1e-8  # optax.adamw as make_optimizer sets it
 
@@ -72,7 +77,7 @@ class AdamW:
         g = [torch.zeros_like(p) if x is None else x.to(torch.float32)
              for p, x in zip(self.params, grads)]
         if self.grad_clip:
-            norm = torch.sqrt(sum(torch.sum(x * x) for x in g))
+            norm = torch.sqrt(model_total([torch.sum(x * x) for x in g], self.params))
             # optax: where(norm < max_norm, g, (g / norm) * max_norm)
             g = [torch.where(norm < self.grad_clip, x, (x / norm) * self.grad_clip)
                  for x in g]

@@ -26,6 +26,13 @@ gradients and the logged losses are summed over the data ranks in one
 all-reduce, and a CL penalty enters once. The data rank is folded into
 every kernel seed and the device generator's seed (models/common.py:
 fold_rank), so a mesh of one is bit-identical to no mesh.
+
+Under a model axis (parallel/sharding.py:shard_model) the model ranks of
+a data rank hold the same rows: the losses, computed whole after the
+heads, are summed over the data ranks only; the gradients of the whole
+parameters a split region reads a slice of are first summed over the
+model ranks; the split regions' draws fold the model rank in, the whole
+model's do not, so every model rank holds the same whole tensors.
 """
 
 from __future__ import annotations
@@ -45,7 +52,7 @@ from ..ops.ctc_loss import IMPLS as CTC_IMPLS
 from ..ops.ctc_loss import ctc_loss
 from ..ops.rnnt_loss_fused import IMPLS as RNNT_IMPLS
 from ..ops.rnnt_loss_fused import REMATS, rnnt_loss_fused
-from ..parallel.sharding import all_reduce_sum, reduce_sum
+from ..parallel.sharding import all_reduce_sum, model_sum_partial, model_total, reduce_sum
 from .state import AdamW
 
 
@@ -138,9 +145,8 @@ def hybrid_forward_tensors(model, step_cfg: StepConfig, audio, audio_lens,
     f_proj, g_proj = model.joint_project(f, g)
     ctc_lp = model.ctc_logprobs(f, lang_ids)
     lang = lang_ids.long()
-    head_w = model.joint.head_kernel[lang]
-    head_b = model.joint.head_bias[lang]
-    return f_proj, g_proj, ctc_lp, head_w, head_b, f, enc_lens
+    head_kernel, head_bias = model.joint.heads()
+    return f_proj, g_proj, ctc_lp, head_kernel[lang], head_bias[lang], f, enc_lens
 
 
 def hybrid_forward_loss(model, step_cfg: StepConfig, batch: dict,
@@ -184,11 +190,14 @@ def hybrid_forward_loss(model, step_cfg: StepConfig, batch: dict,
 def data_parallel(mesh, generator: torch.Generator, device, *models):
     """The data-parallel state of one train-mode forward, in one place:
     yields the forward's ``Rngs`` (one draw of ``generator``, this data
-    rank folded in), and inside, the BatchNorms of ``models`` take the
-    global batch's statistics over ``mesh``'s data ranks. Without a mesh,
-    the Rngs of rank 0 and the local statistics."""
-    rank = 0 if mesh is None else mesh.data_rank
-    rngs = Rngs.from_host(generator, device, rank)
+    rank folded in, and under a model axis the model rank for the split
+    regions), and inside, the BatchNorms of ``models`` take the global
+    batch's statistics over ``mesh``'s data ranks. Without a mesh, the
+    Rngs of rank 0 and the local statistics."""
+    if mesh is None:
+        rngs = Rngs.from_host(generator, device)
+    else:
+        rngs = Rngs.from_host(generator, device, mesh.data_rank, mesh.model_rank, mesh.n_model)
     norms = [m for model in models for m in model.modules() if isinstance(m, BatchNorm)]
     if mesh is not None:
         for m in norms:
@@ -203,9 +212,12 @@ def data_parallel(mesh, generator: torch.Generator, device, *models):
 def reduced(mesh, grads, params, aux: dict):
     """(grads, aux) summed over ``mesh``'s data ranks in one all-reduce:
     this rank's gradients (None for an unused parameter: zeros) and its
-    share of every loss in ``aux``. Without a mesh: unchanged."""
+    share of every loss in ``aux``; under a model axis the partial
+    gradients of the whole parameters a split region reads a slice of are
+    summed over the model ranks first. Without a mesh: unchanged."""
     if mesh is None:
         return grads, aux
+    grads = model_sum_partial(mesh, grads, params)
     keys = list(aux)
     out = reduce_sum(mesh, list(grads) + [aux[k] for k in keys],
                      list(params) + [aux[k] for k in keys])
@@ -221,18 +233,18 @@ def make_train_step(model, step_cfg: StepConfig, optimizer: AdamW,
 
     ``penalty_fn(params) -> (penalty, extra_grads or None)`` hooks the CL
     methods in: ``params`` maps the trainable parameters' names to the
-    parameters; a scalar penalty is differentiated with the loss, and
-    explicit gradients (EWC's, a dict by name) are added after the
-    backward, their global norm reported as ``penalty_gnorm``. The aux
-    values are 0-d tensors on the device (reading them waits for the
-    step).
+    parameters; a scalar penalty is differentiated on its own and its
+    gradients, like explicit ones (EWC's, a dict by name), are added to
+    the loss's after the backward; the explicit ones' global norm is
+    reported as ``penalty_gnorm``. The aux values are 0-d tensors on the
+    device (reading them waits for the step).
 
     ``mesh`` (parallel/sharding.py:make_mesh) makes the step data
     parallel: ``batch`` is this rank's rows (``place_batch``), BatchNorm
     takes the global batch's statistics, and the gradients and aux losses
-    are summed over the data ranks; the replicated penalty enters once
-    (a scalar one divided by the data size before the sum, explicit
-    gradients added after it)."""
+    are summed over the data ranks; the penalty, the same on every data
+    rank and a function of this rank's shards, enters once, after the
+    sums. A model axis runs the model split as ``shard_model`` left it."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model is on {model.device}, step asked for {dev}")
@@ -241,21 +253,22 @@ def make_train_step(model, step_cfg: StepConfig, optimizer: AdamW,
     def step(batch: dict, generator: torch.Generator) -> dict:
         with data_parallel(mesh, generator, model.device, model) as rngs:
             loss, aux = hybrid_forward_loss(model, step_cfg, batch, rngs, train=True)
-        pen = extra = None
-        if penalty_fn is not None:
-            pen, extra = penalty_fn(dict(zip(names, params)))
-            loss = loss + (pen if mesh is None else pen / mesh.n_data)
         grads, aux = reduced(mesh, torch.autograd.grad(loss, params, allow_unused=True),
                              params, aux)
         grads = list(grads)
-        if pen is not None:
-            aux = dict(aux, penalty=pen, train_loss=aux["train_loss"] + pen)
-        if extra is not None:
-            pg = [extra.get(n) for n in names]
-            aux["penalty_gnorm"] = torch.sqrt(sum(
-                (e.float() ** 2).sum() for e in pg if e is not None))
-            grads = [g if e is None else (e if g is None else g + e)
-                     for g, e in zip(grads, pg)]
+        if penalty_fn is not None:
+            pen, extra = penalty_fn(dict(zip(names, params)))
+            aux = dict(aux, penalty=pen.detach(), train_loss=aux["train_loss"] + pen.detach())
+            if pen.requires_grad:
+                extra = dict(zip(names, torch.autograd.grad(pen, params, allow_unused=True)))
+            elif extra is not None:
+                pg = [extra.get(n) for n in names]
+                aux["penalty_gnorm"] = torch.sqrt(model_total(
+                    [(e.float() ** 2).sum() for e in pg if e is not None],
+                    [p for p, e in zip(params, pg) if e is not None]))
+            if extra is not None:
+                grads = [g if e is None else (e if g is None else g + e)
+                         for g, e in zip(grads, (extra.get(n) for n in names))]
         optimizer.step(grads)
         return {k: v.detach() if torch.is_tensor(v) else v for k, v in aux.items()}
 

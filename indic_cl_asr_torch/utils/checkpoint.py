@@ -17,6 +17,12 @@ Port of indic_cl_asr_tpu/utils/checkpoint.py:
     ``sequence.json`` manifest of the completed tasks and the val WER
     records, so a crashed language sequence resumes where it stopped.
 
+Every file holds the whole model. Over a model split by
+parallel/sharding.py:shard_model the writers gather the parameters,
+statistics and AdamW moments over the model ranks (every rank calls them;
+the main process writes), and the readers load each rank's shard, so a
+file written by a split run loads into one process and the reverse.
+
 Orbax trees and ``.nemo`` files are not read.
 """
 
@@ -31,15 +37,17 @@ import torch
 
 from ..models.convert import named_state_dict
 from ..parallel.distributed import barrier, is_main_process
+from ..parallel.sharding import gather_named, gather_state, local_moments, local_named
 
 
 def save_partial(path: str, model: torch.nn.Module, names) -> None:
     """Save the parameters named in ``names`` (the trainable ones) as f32
-    numpy arrays under their names."""
+    numpy arrays under their names, whole; every process calls it, the
+    main process writes."""
     keep = set(names)
-    arrays = {n: p.detach().float().cpu().numpy() for n, p in model.named_parameters()
-              if n in keep}
-    np.savez(path, **arrays)
+    arrays = gather_named(model, {n: p for n, p in model.named_parameters() if n in keep})
+    if is_main_process():
+        np.savez(path, **{n: t.float().cpu().numpy() for n, t in arrays.items()})
 
 
 @torch.no_grad()
@@ -58,7 +66,8 @@ def load_partial(path: str, model: torch.nn.Module) -> torch.nn.Module:
     n_jax = sum("/" in k for k in named)
     if n_jax not in (0, len(named)):
         raise ValueError(f"{path} mixes JAX paths and port names")
-    sd = named_state_dict(named) if n_jax else named
+    sd = local_named(model, {k: torch.from_numpy(np.asarray(v, dtype=np.float32))
+                             for k, v in (named_state_dict(named) if n_jax else named).items()})
     own = model.state_dict()
     unknown = sorted(set(sd) - set(own))
     if unknown:
@@ -66,15 +75,17 @@ def load_partial(path: str, model: torch.nn.Module) -> torch.nn.Module:
     for name, arr in sd.items():
         if tuple(arr.shape) != tuple(own[name].shape):
             raise ValueError(f"{name}: {tuple(arr.shape)} != {tuple(own[name].shape)}")
-        own[name].copy_(torch.from_numpy(np.asarray(arr, dtype=np.float32)))
+        own[name].copy_(arr)
     return model
 
 
 def save_model(path: str, model: torch.nn.Module) -> None:
     """The whole model (parameters and BatchNorm statistics) as a ``.pt``,
     in the layout ``SequenceCheckpointer.save_task`` writes its
-    ``"model"`` entry."""
-    torch.save({"model": {k: v.detach().cpu() for k, v in model.state_dict().items()}}, path)
+    ``"model"`` entry; every process calls it, the main process writes."""
+    state = gather_state(model)["model"]
+    if is_main_process():
+        torch.save({"model": {k: v.cpu() for k, v in state.items()}}, path)
 
 
 @torch.no_grad()
@@ -89,7 +100,7 @@ def load_model(path: str, model: torch.nn.Module) -> torch.nn.Module:
     if path.endswith(".npz"):
         return load_partial(path, model)
     state = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(state["model"])
+    model.load_state_dict(local_named(model, state["model"]))
     return model
 
 
@@ -113,20 +124,23 @@ class SequenceCheckpointer:
     def save_task(self, task_idx: int, lang: str, model: torch.nn.Module, optimizer,
                   val_performance: dict, method_state: Any | None = None) -> None:
         """Checkpoint the model (parameters and BatchNorm statistics), the
-        AdamW state and the CL method's state, then record the task. Under
-        a process group the main process writes (the state is the same on
-        every one) and every process waits for it at a barrier."""
+        AdamW state and the CL method's state (whole: ``method_state`` as
+        the method exports it), then record the task. Under a process group
+        every process gathers the state (the same on every data rank), the
+        main process writes, and every process waits for it at a
+        barrier."""
+        state = gather_state(model, optimizer)
         if is_main_process():
-            self._write_task(task_idx, lang, model, optimizer, val_performance, method_state)
+            self._write_task(task_idx, lang, state, optimizer, val_performance, method_state)
         barrier("save task")
 
-    def _write_task(self, task_idx, lang, model, optimizer, val_performance, method_state):
+    def _write_task(self, task_idx, lang, state, optimizer, val_performance, method_state):
         torch.save({
-            "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
+            "model": {k: v.cpu() for k, v in state["model"].items()},
             "optimizer": {
                 "names": list(optimizer.names),
-                "mu": [m.detach().cpu() for m in optimizer.mu],
-                "nu": [n.detach().cpu() for n in optimizer.nu],
+                "mu": [m.cpu() for m in state["mu"]],
+                "nu": [n.cpu() for n in state["nu"]],
                 "count": int(optimizer.count),
             },
         }, self._path(task_idx, lang))
@@ -141,16 +155,17 @@ class SequenceCheckpointer:
 
     def load_task(self, task_idx: int, lang: str, model: torch.nn.Module, optimizer) -> None:
         """Restore ``save_task``'s state into ``model`` and ``optimizer`` in
-        place (the same parameter layout and trainable set)."""
+        place (the same parameter names and trainable set; each rank of a
+        split model takes its shards)."""
         state = torch.load(self._path(task_idx, lang), map_location="cpu", weights_only=True)
         opt = state["optimizer"]
         if list(opt["names"]) != list(optimizer.names):
             raise ValueError("checkpoint's trainable parameters differ from the optimizer's")
-        model.load_state_dict(state["model"])
+        model.load_state_dict(local_named(model, state["model"]))
         with torch.no_grad():
-            for dst, src in zip(optimizer.mu, opt["mu"]):
+            for dst, src in zip(optimizer.mu, local_moments(optimizer, opt["mu"])):
                 dst.copy_(src)
-            for dst, src in zip(optimizer.nu, opt["nu"]):
+            for dst, src in zip(optimizer.nu, local_moments(optimizer, opt["nu"])):
                 dst.copy_(src)
         optimizer.count = int(opt["count"])
 

@@ -7,8 +7,9 @@ gloo (a free localhost port, one intra-op thread each), at
     collectives are no-ops (the JAX ``test_distributed_single_host_noops``);
   * two ranks: barrier, ``broadcast_from_main`` of objects and tensor
     trees, ``all_hosts_agree``, ``shard_for_host`` equal to the JAX
-    function, a 3 x 1 mesh over two ranks raising ``ValueError`` and a
-    model axis ``NotImplementedError``;
+    function, a 3 x 1 and a 2 x 2 mesh over two ranks raising
+    ``ValueError`` (tests/test_torch_tensor_parallel.py runs the model
+    axis);
   * the two-rank step against the JAX package's step on
     ``make_mesh(n_data=2)`` over two virtual CPU devices, from the same
     weights and batch (a repeat row masked out), with dither, dropout and
@@ -43,8 +44,8 @@ gloo (a free localhost port, one intra-op thread each), at
     rank 1's streams rank-suffixed, a complete ``sequence.json``; a run
     stopped after task 0 resumes with ``--resume_dir`` and trains task 1;
   * the raises: a batch that does not split over the data axis
-    (``ValueError``); ``--mesh.model 2`` and ``--mesh.data 3`` at world
-    size 2 in the worker (above).
+    (``ValueError``); a 2 x 2 and a 3 x 1 mesh at world size 2 in the
+    worker (above).
 """
 
 import dataclasses
@@ -278,7 +279,7 @@ def _contract(rank):
     D.barrier("contract")
     raised = {}
     for name, call in (("data_3", lambda: make_mesh(3)),
-                       ("model_2", lambda: make_mesh(1, 2))):
+                       ("model_2", lambda: make_mesh(2, 2))):
         try:
             call()
         except Exception as e:  # noqa: BLE001 - the type is what is checked
@@ -402,7 +403,7 @@ def test_two_ranks_barrier_broadcast_agree_and_shard(dp):
         assert torch.equal(c["tree"]["a"], torch.zeros(3))
         assert torch.equal(c["tree"]["b"][0], torch.arange(4))
         assert c["agree_equal"] and c["agree_tensor"] and not c["agree_differ"]
-        assert c["raised"] == {"data_3": "ValueError", "model_2": "NotImplementedError"}
+        assert c["raised"] == {"data_3": "ValueError", "model_2": "ValueError"}
     for r, c in enumerate((c0, c1)):
         assert c["shard"] == jax_shard_for_host(list(range(11)), r, 2)
 

@@ -9,10 +9,9 @@ exact:
     vocabularies and ids; ``build_model_cfg`` equal fields; ``build_all``
     the JAX trainable mask (mapped through models/convert.py), AdamW
     hyperparameters, StepConfig, BucketSpec and DriverConfig (the causal
-    conv and Longformer options included); what the port lacks raises
-    ``NotImplementedError`` (the model axis) or ``ValueError`` (a data
-    axis beyond the process group, a multi-process launch without its
-    rendezvous);
+    conv and Longformer options included); a mesh beyond the process
+    group (either axis) and a multi-process launch without its rendezvous
+    raise ``ValueError``;
   * checkpoints: JAX partial saves in both encoder layouts (one without
     the frozen layers) through ``load_partial``, the port's own saves
     round-tripped, an unknown name raising;
@@ -216,15 +215,16 @@ def test_build_model_cfg_matches(tmp_path, argv, config):
 
 
 @pytest.mark.parametrize("argv,env,error", [
-    (["--mesh.data", "2"], None, ValueError), (["--mesh.model", "2"], None, NotImplementedError),
-    (["--mesh.data", "0", "--mesh.model", "2"], None, NotImplementedError),
+    (["--mesh.data", "2"], None, ValueError), (["--mesh.model", "2"], None, ValueError),
+    (["--mesh.data", "0", "--mesh.model", "2"], None, ValueError),
     ([], "1", ValueError),
 ], ids=["mesh_data", "mesh_model", "mesh_all_devices", "multihost"])
 def test_what_the_port_lacks_raises(tmp_path, monkeypatch, argv, env, error):
-    """The model axis is not ported; a data axis larger than the process
-    group, and INDIC_ASR_MULTIHOST=1 with neither a coordinator nor
-    torchrun's variables, are refused (tests/test_torch_distributed.py
-    runs the data axis)."""
+    """A mesh larger than the process group (a data or a model axis of 2,
+    or every process over a model axis of 2, at one process), and
+    INDIC_ASR_MULTIHOST=1 with neither a coordinator nor torchrun's
+    variables, are refused (tests/test_torch_distributed.py runs the data
+    axis, tests/test_torch_tensor_parallel.py the model axis)."""
     if env:
         monkeypatch.setenv("INDIC_ASR_MULTIHOST", env)
         for var in ("INDIC_ASR_COORDINATOR", "MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE"):
