@@ -38,6 +38,7 @@ from ..parallel.sharding import gather_named, gather_state, local_named
 from ..train.driver import CLMethod
 from ..train.step import (StepConfig, batch_rows, data_parallel, hybrid_forward_loss,
                           hybrid_forward_tensors, reduced)
+from ..utils.profiling import span
 from . import ewc as E
 from . import lwf as L
 from . import mas as M
@@ -203,9 +204,11 @@ class LwFMethod(CLMethod):
             kd, ctx = lcfg.knowledge_distillation, lcfg.knowledge_distillation_ctx
             loss = (1 - kd) * task_loss + kd * ((1 - ctx) * rnnt_kd + ctx * ctc_kd)
             aux = dict(aux, train_loss=loss, rnnt_kd=rnnt_kd, ctc_kd=ctc_kd)
-            grads, aux = reduced(mesh, torch.autograd.grad(loss, params, allow_unused=True),
-                                 params, aux)
-            optimizer.step(list(grads))
+            with span("asr.backward"):
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads, aux = reduced(mesh, grads, params, aux)
+            with span("asr.optimizer"):
+                optimizer.step(list(grads))
             return {k: v.detach() for k, v in aux.items()}
 
         return step

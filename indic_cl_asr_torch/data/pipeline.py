@@ -23,6 +23,7 @@ import numpy as np
 
 from ..audio.io import load_audio
 from ..utils.native import load_wav_batch_native
+from ..utils.profiling import span
 from .manifest import ManifestEntry
 
 
@@ -218,9 +219,11 @@ class BatchPipeline:
         def producer():
             try:
                 for b, n_real, chunk in plan:
-                    batch = _assemble(chunk, n_real, b, self.spec, self.tokenizer,
-                                      self.lang_index, self.pad_id, self.loader,
-                                      io_pool)
+                    with span("asr.data.assemble",
+                              lambda: "B=%d S=%d U=%d" % (len(chunk), *self.spec.shapes(b))):
+                        batch = _assemble(chunk, n_real, b, self.spec, self.tokenizer,
+                                          self.lang_index, self.pad_id, self.loader,
+                                          io_pool)
                     if not put(batch):
                         return
             except Exception as e:  # surfaced on the consumer's side

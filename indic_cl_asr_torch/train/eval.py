@@ -54,6 +54,7 @@ from ..ops.decode_fused import (
     rnnt_greedy_decode_fused_reference,
 )
 from ..ops.decoding import ctc_greedy_decode, rnnt_greedy_decode_labelsync
+from ..utils.profiling import span
 from .metrics import wer
 
 DECODERS = ("rnnt", "ctc", "rnnt_beam", "rnnt_beam_host", "ctc_beam")
@@ -140,11 +141,15 @@ class Transcriber:
         self.counts: collections.Counter = collections.Counter()
 
     @torch.inference_mode()
-    def _encode(self, audio, audio_len):
-        self.model.eval()  # a training step leaves the model in train mode
-        mel, mel_lens = log_mel_spectrogram(audio, audio_len, self.frontend)
-        self.counts["encoder_batches"] += 1
-        return self.model.encode(mel, mel_lens)
+    def _encode(self, audio, audio_len, n_real: int):
+        """Log-mel and encoder of a batch whose first ``n_real`` rows are
+        real (the span's ``real``; the rest repeat a row to fill it)."""
+        with span("asr.eval.encode",
+                  lambda: f"B={audio.shape[0]} real={n_real} S={audio.shape[1]}"):
+            self.model.eval()  # a training step leaves the model in train mode
+            mel, mel_lens = log_mel_spectrogram(audio, audio_len, self.frontend)
+            self.counts["encoder_batches"] += 1
+            return self.model.encode(mel, mel_lens)
 
     @torch.inference_mode()
     def decode_batch(self, audio, audio_len, lang_ids, decoder: str, n_real: int | None = None):
@@ -153,7 +158,7 @@ class Transcriber:
         model = self.model
         blank = model.cfg.blank_local
         n_real = len(lang_ids) if n_real is None else n_real
-        f, enc_lens = self._encode(audio, audio_len)
+        f, enc_lens = self._encode(audio, audio_len, n_real)
         self.counts[f"{decoder}_batches"] += 1
         if decoder == "ctc_beam":
             lp = model.ctc_logprobs(f, lang_ids).float().cpu().numpy()
@@ -211,20 +216,22 @@ class Transcriber:
                     chunk_idx = idxs[i0 : i0 + self.batch_size]
                     n_real = len(chunk_idx)
                     padded = chunk_idx + [chunk_idx[-1]] * (self.batch_size - n_real)
-                    batch = _assemble(
-                        [entries[j] for j in padded], n_real, bucket, spec,
-                        self.tokenizer, lang_index, 0, load_audio, io_pool,
-                    )
-                    rows = self.decode_batch(
-                        torch.from_numpy(batch.audio).to(dev),
-                        torch.from_numpy(batch.audio_len).to(dev),
-                        torch.from_numpy(batch.lang_ids).to(dev),
-                        decoder, n_real,
-                    )
-                    for row in range(n_real):
-                        hyps[chunk_idx[row]] = self.tokenizer.ids_to_text(
-                            rows[row], batch.langs[row]
+                    with span("asr.eval.assemble",
+                              lambda: "B=%d S=%d" % (len(padded), spec.shapes(bucket)[0])):
+                        batch = _assemble(
+                            [entries[j] for j in padded], n_real, bucket, spec,
+                            self.tokenizer, lang_index, 0, load_audio, io_pool,
                         )
+                        audio = torch.from_numpy(batch.audio).to(dev)
+                        audio_len = torch.from_numpy(batch.audio_len).to(dev)
+                        lang_ids = torch.from_numpy(batch.lang_ids).to(dev)
+                    rows = self.decode_batch(audio, audio_len, lang_ids, decoder, n_real)
+                    del audio, audio_len, lang_ids  # off the card before the next batch's copies
+                    with span("asr.eval.detokenize"):
+                        for row in range(n_real):
+                            hyps[chunk_idx[row]] = self.tokenizer.ids_to_text(
+                                rows[row], batch.langs[row]
+                            )
         return hyps
 
     def transcribe_files(
@@ -248,7 +255,8 @@ class Transcriber:
         self, entries: Sequence[ManifestEntry], decoder: str = "rnnt"
     ) -> float:
         hyps = self.transcribe(entries, decoder)
-        return wer([e.text for e in entries], hyps)
+        with span("asr.eval.wer"):
+            return wer([e.text for e in entries], hyps)
 
 
 def run_eval(

@@ -53,6 +53,7 @@ from ..ops.ctc_loss import ctc_loss
 from ..ops.rnnt_loss_fused import IMPLS as RNNT_IMPLS
 from ..ops.rnnt_loss_fused import REMATS, rnnt_loss_fused
 from ..parallel.sharding import all_reduce_sum, model_sum_partial, model_total, reduce_sum
+from ..utils.profiling import span
 from .state import AdamW
 
 
@@ -127,26 +128,30 @@ def hybrid_forward_tensors(model, step_cfg: StepConfig, audio, audio_lens,
     Returns (f_proj, g_proj, ctc_lp, head_w, head_b, f, enc_lens). In train
     mode BatchNorm statistics are updated in the model's buffers."""
     model.train(train)
-    mel, mel_lens = log_mel_spectrogram(
-        audio, audio_lens, step_cfg.frontend, training=train,
-        generator=rngs.device if rngs is not None else None,
-    )
-    if train and step_cfg.use_spec_augment:
-        if rngs is None:
-            raise ValueError("SpecAugment in train mode needs rngs")
-        host_lens = (audio_lens if audio_lens_host is None else audio_lens_host).cpu()
-        mel_host_lens = output_seq_len(host_lens.to(torch.int64), step_cfg.frontend)
-        bands = draw_bands(mel_host_lens, mel.shape[1], step_cfg.spec_augment, rngs.host)
-        rows = slice(row0, row0 + mel.shape[0])
-        mel = apply_bands(mel, *(b[rows] for b in bands),
-                          mask_value=step_cfg.spec_augment.mask_value)
-    f, enc_lens = model.encode(mel, mel_lens, rngs)
-    g, _ = model.predict(tokens, add_sos=True, rngs=rngs)
-    f_proj, g_proj = model.joint_project(f, g)
-    ctc_lp = model.ctc_logprobs(f, lang_ids)
-    lang = lang_ids.long()
-    head_kernel, head_bias = model.joint.heads()
-    return f_proj, g_proj, ctc_lp, head_kernel[lang], head_bias[lang], f, enc_lens
+    with span("asr.frontend"):
+        mel, mel_lens = log_mel_spectrogram(
+            audio, audio_lens, step_cfg.frontend, training=train,
+            generator=rngs.device if rngs is not None else None,
+        )
+        if train and step_cfg.use_spec_augment:
+            if rngs is None:
+                raise ValueError("SpecAugment in train mode needs rngs")
+            host_lens = (audio_lens if audio_lens_host is None else audio_lens_host).cpu()
+            mel_host_lens = output_seq_len(host_lens.to(torch.int64), step_cfg.frontend)
+            bands = draw_bands(mel_host_lens, mel.shape[1], step_cfg.spec_augment, rngs.host)
+            rows = slice(row0, row0 + mel.shape[0])
+            mel = apply_bands(mel, *(b[rows] for b in bands),
+                              mask_value=step_cfg.spec_augment.mask_value)
+    with span("asr.encoder"):
+        f, enc_lens = model.encode(mel, mel_lens, rngs)
+    with span("asr.predict"):
+        g, _ = model.predict(tokens, add_sos=True, rngs=rngs)
+        f_proj, g_proj = model.joint_project(f, g)
+        ctc_lp = model.ctc_logprobs(f, lang_ids)
+        lang = lang_ids.long()
+        head_kernel, head_bias = model.joint.heads()
+        head_w, head_b = head_kernel[lang], head_bias[lang]
+    return f_proj, g_proj, ctc_lp, head_w, head_b, f, enc_lens
 
 
 def hybrid_forward_loss(model, step_cfg: StepConfig, batch: dict,
@@ -164,20 +169,22 @@ def hybrid_forward_loss(model, step_cfg: StepConfig, batch: dict,
     row_mask, n_rows = batch_rows(batch, f_proj.shape[0], f_proj.device)
     cfg = model.cfg
     tokens, token_len = batch["tokens"], batch["token_len"]
-    rnnt = rnnt_loss_fused(
-        f_proj, g_proj, head_w, head_b, tokens, enc_lens, token_len,
-        blank=cfg.blank_local, activation=cfg.joint_activation, reduction="mean_batch",
-        chunk_size=step_cfg.rnnt_chunk_size,
-        dropout_rate=cfg.joint_dropout if train else 0.0,
-        generator=rngs.device if rngs is not None else None,
-        host_generator=rngs.host if rngs is not None else None,
-        impl=step_cfg.rnnt_impl, row_mask=row_mask,
-        uniform_head=step_cfg.uniform_lang_head, remat=step_cfg.rnnt_remat,
-        n_rows=n_rows, seed_rank=rngs.rank if rngs is not None else 0,
-    )
-    ctc = ctc_loss(ctc_lp, enc_lens, tokens, token_len, blank=cfg.blank_local,
-                   reduction="mean_batch", impl=step_cfg.ctc_impl, row_mask=row_mask,
-                   n_rows=n_rows)
+    with span("asr.rnnt_loss"):
+        rnnt = rnnt_loss_fused(
+            f_proj, g_proj, head_w, head_b, tokens, enc_lens, token_len,
+            blank=cfg.blank_local, activation=cfg.joint_activation, reduction="mean_batch",
+            chunk_size=step_cfg.rnnt_chunk_size,
+            dropout_rate=cfg.joint_dropout if train else 0.0,
+            generator=rngs.device if rngs is not None else None,
+            host_generator=rngs.host if rngs is not None else None,
+            impl=step_cfg.rnnt_impl, row_mask=row_mask,
+            uniform_head=step_cfg.uniform_lang_head, remat=step_cfg.rnnt_remat,
+            n_rows=n_rows, seed_rank=rngs.rank if rngs is not None else 0,
+        )
+    with span("asr.ctc_loss"):
+        ctc = ctc_loss(ctc_lp, enc_lens, tokens, token_len, blank=cfg.blank_local,
+                       reduction="mean_batch", impl=step_cfg.ctc_impl, row_mask=row_mask,
+                       n_rows=n_rows)
     w = step_cfg.ctc_loss_weight
     loss = (1.0 - w) * rnnt + w * ctc
     aux = {"train_rnnt_loss": rnnt, "train_ctc_loss": ctc, "train_loss": loss}
@@ -253,8 +260,9 @@ def make_train_step(model, step_cfg: StepConfig, optimizer: AdamW,
     def step(batch: dict, generator: torch.Generator) -> dict:
         with data_parallel(mesh, generator, model.device, model) as rngs:
             loss, aux = hybrid_forward_loss(model, step_cfg, batch, rngs, train=True)
-        grads, aux = reduced(mesh, torch.autograd.grad(loss, params, allow_unused=True),
-                             params, aux)
+        with span("asr.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads, aux = reduced(mesh, grads, params, aux)
         grads = list(grads)
         if penalty_fn is not None:
             pen, extra = penalty_fn(dict(zip(names, params)))
@@ -269,7 +277,8 @@ def make_train_step(model, step_cfg: StepConfig, optimizer: AdamW,
             if extra is not None:
                 grads = [g if e is None else (e if g is None else g + e)
                          for g, e in zip(grads, (extra.get(n) for n in names))]
-        optimizer.step(grads)
+        with span("asr.optimizer"):
+            optimizer.step(grads)
         return {k: v.detach() if torch.is_tensor(v) else v for k, v in aux.items()}
 
     return step

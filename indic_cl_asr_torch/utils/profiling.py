@@ -4,7 +4,9 @@ indic_cl_asr_tpu/utils/profiling.py).
   * ``trace(log_dir, device)``: ``torch.profiler`` over the block (CPU
     activity, and CUDA activity on a card); on exit a Chrome trace JSON in
     ``log_dir`` (view in Perfetto or chrome://tracing);
-  * ``annotate(name)``: a named span in the trace (``record_function``);
+  * ``span(name, args)``: a named span of the port's own (``asr.*``) in the
+    trace (``record_function``) and in ``SPANS``, only while a
+    ``torch.profiler`` session runs; otherwise a shared no-op;
   * ``StepTimer``: wall-clock step timing with a device sync, warmup
     discard and percentile stats;
   * ``device_memory_stats(device)`` / ``log_live_buffers(top_k)``: the
@@ -26,11 +28,13 @@ import collections
 import contextlib
 import gc
 import os
+import threading
 import time
 import warnings
 
 import numpy as np
 import torch
+import torch.autograd.profiler as autograd_profiler
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 from torch.utils._python_dispatch import _disable_current_modes
@@ -57,8 +61,67 @@ def trace(log_dir: str, device=None):
         os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
 
 
-def annotate(name: str):
-    return record_function(name)
+class SpanTotals:
+    """What the port's spans recorded while a profiler ran, per span name:
+    how often it was entered, its host seconds (each span from its entry
+    to its exit, on the thread that opened it, its children included), and
+    how often each ``args`` string (a batch's shape) came. Spans on every
+    thread add to it, the data producer's included."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.clear()
+
+    def clear(self) -> None:
+        with self._lock:
+            self._count: collections.Counter = collections.Counter()
+            self._seconds: collections.Counter = collections.Counter()
+            self._args: dict[str, collections.Counter] = {}
+
+    def add(self, name: str, seconds: float, args: str | None) -> None:
+        with self._lock:
+            self._count[name] += 1
+            self._seconds[name] += seconds
+            if args:
+                self._args.setdefault(name, collections.Counter())[args] += 1
+
+    def as_dict(self) -> dict:
+        """{name: {"count", "seconds", "args": {args: count}}}."""
+        with self._lock:
+            return {name: {"count": n, "seconds": self._seconds[name],
+                           "args": dict(self._args.get(name, {}))}
+                    for name, n in self._count.items()}
+
+
+# every span entered under a profiler since the process started or since
+# SPANS.clear(), which nothing in the package calls: a process that profiles
+# two windows holds their sum
+SPANS = SpanTotals()
+
+_OFF = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _span(name: str, args: str | None):
+    with record_function(name, args):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            SPANS.add(name, time.perf_counter() - t0, args)
+
+
+def span(name: str, args=None):
+    """A named span of the port (``asr.<layer>``) around the block, only
+    while a ``torch.profiler`` session runs: a ``record_function`` in the
+    trace, on the profiler's clock beside the kernels (nesting gives it
+    its parent), and an entry in ``SPANS``. ``args`` is a string, or a
+    callable returning one (the batch's shape, ``"B=16 S=64000 U=64"``),
+    called only then. With no profiler running it is one shared
+    ``nullcontext``: no string built, no ``RecordFunction`` created."""
+    if not autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _span(name, args() if callable(args) else args)
 
 
 def _sync(result) -> None:

@@ -12,6 +12,7 @@ array.
 """
 
 import os
+import subprocess
 
 import numpy as np
 import pytest
@@ -33,6 +34,28 @@ from indic_cl_asr_torch.train import metrics
 from indic_cl_asr_torch.utils import native
 
 from .synth import make_texts
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_library(tmp_path_factory):
+    """The JAX package's native library, compiled from its sources
+    (``native/*.cpp``) with the port's flags into this module's own
+    temporary directory, and loaded through ``jax_native.get_lib``. Left
+    to itself, the JAX module compiles at first use straight onto
+    ``native/libindic_native.so``; under xdist another test process may be
+    compiling there at that moment, and a load of its partial file fails
+    for the life of the process. No other process writes this copy."""
+    out = tmp_path_factory.mktemp("jax_native") / "libindic_native.so"
+    srcs = [os.path.join(jax_native._NATIVE_DIR, n) for n in ("editdistance.cpp",
+                                                              "audio_loader.cpp")]
+    subprocess.run([*native.COMPILE, *srcs, "-shared", "-lpthread", "-o", str(out)],
+                   check=True, capture_output=True, timeout=300)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_LIB_PATH", str(out))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        assert jax_native.get_lib() is not None
+        yield
 
 
 def _pairs(rng, n=50):

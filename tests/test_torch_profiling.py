@@ -194,7 +194,7 @@ def test_step_timer_memory_stats_and_trace(tmp_path):
     assert ((1234, 567), "torch.float32", big.numel() * 4) in profiling.log_live_buffers(
         5, device="cpu")
     with profiling.trace(str(tmp_path), "cpu"):
-        with profiling.annotate("my_span"):
+        with profiling.span("my_span"):
             torch.ones(8) @ torch.ones(8)
     (path,) = tmp_path.glob("trace-*.json")
     names = {e.get("name") for e in json.loads(path.read_text())["traceEvents"]}
